@@ -3,14 +3,17 @@
 Batched BPM + beat-grid + key analysis over a padded ``[B, T]`` track
 batch, on the device the caller names. It takes the JAX package's
 ``AnalysisConfig`` (``stratum_dsp_tpu.config`` imports no JAX) and returns
-the same result arrays under the same keys. The two TPU kernels of the main
+the same result arrays under the same keys. The four TPU kernels of the main
 path are hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` on
 first use; every kernel has a plain PyTorch version that CPU tensors take.
 
-This package imports ``torch`` and never ``jax``. It covers the slice
-``SLICE_CONFIG`` (the default config with the multi-resolution escalation
-off); other configs raise ``NotImplementedError``.
+This package imports ``torch`` and never ``jax``. It runs the default
+``AnalysisConfig``, multi-resolution escalation included, and the switches
+around it; ``SLICE_CONFIG`` is the default with the escalation off. Other
+configs raise ``NotImplementedError``.
 """
+
+from stratum_dsp_tpu.config import AnalysisConfig
 
 from .analysis.pipeline import (
     SLICE_CONFIG,
@@ -20,9 +23,11 @@ from .analysis.pipeline import (
     check_slice_config,
 )
 from .ops.downbeats import downbeat_mask
+from .ops.novelty import fused_novelty_features
 from .ops.polyphase import polyphase_stage2
+from .ops.viterbi import viterbi_decode
 
-KERNELS = (polyphase_stage2, downbeat_mask)
+KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_features)
 
 
 def reset_launch_counts() -> None:

@@ -1,13 +1,15 @@
 """Batched analysis orchestrator (port of
 ``stratum_dsp_tpu/analysis/pipeline.py``): preprocessing -> onsets ->
 streamed BPM spectral features -> tempograms + legacy estimate -> beat grid
--> key -> warnings and confidence, over a padded ``[B, T]`` batch.
+-> multi-resolution escalation of the ambiguous tracks -> beat grid -> key
+-> warnings and confidence, over a padded ``[B, T]`` batch.
 
-The port covers one slice of the reference's configurations: the default
-``AnalysisConfig`` with the multi-resolution escalation off
-(``SLICE_CONFIG``). Every stage runs on ``device``; a config outside the
-slice raises ``NotImplementedError`` naming the setting, so a caller never
-gets a different pipeline than the one asked for.
+The port covers the reference's default ``AnalysisConfig`` and the switches
+around it that ``_SLICE_REQUIREMENTS`` does not pin (``SLICE_CONFIG`` is the
+default with the multi-resolution escalation off). Every stage runs on
+``device``; a config outside the port raises ``NotImplementedError`` naming
+the setting, so a caller never gets a different pipeline than the one asked
+for.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..features.onset.consensus import consensus_onsets, vote_onsets
 from ..features.onset.energy_flux import detect_energy_flux_onsets
 from ..features.onset.spectral import flux_onsets_from_curve, hfc_flux
 from ..features.period import legacy as legacy_mod
+from ..features.period import multi_resolution as mr
 from ..features.period import novelty as nov
 from ..features.period import tempogram as tg
 from ..features.period import tempogram_fft as tft
@@ -36,6 +39,8 @@ from ..preprocessing.silence import detect_and_trim
 from . import confidence as conf_mod
 
 SLICE_CONFIG = AnalysisConfig(enable_tempogram_multi_resolution=False)
+EPSILON = 1e-6
+FAMILY_RELS = (2.0, 1.5, 4.0 / 3.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +56,7 @@ class PipelineCaps:
 
 # (field, value the slice requires) for every setting outside the port
 _SLICE_REQUIREMENTS = (
-    ("enable_tempogram_multi_resolution", False),
+    ("beat_contrast_fractional", False),
     ("enable_hpss_onsets", False),
     ("enable_tempogram_percussive_fallback", False),
     ("enable_bpm_fusion", False),
@@ -102,7 +107,7 @@ def _tempogram_estimate(curves, nov_mask, n_valid, cfg, frame_rate, top_n):
 def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: AnalysisConfig,
                          sample_rate: int, caps: PipelineCaps = PipelineCaps(),
                          mesh=None) -> Dict[str, torch.Tensor]:
-    """Run the slice on ``samples [B, T]`` f32 / ``lengths [B]`` on their
+    """Run the pipeline on ``samples [B, T]`` f32 / ``lengths [B]`` on their
     device; returns a flat dict of result arrays [B, ...] with the keys,
     shapes and dtypes of the reference. Tracks that are empty or all silent
     have ``ok`` False and zeroed outputs."""
@@ -155,8 +160,7 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     base = _tempogram_estimate(curves, nov_mask, n_valid, cfg, frame_rate, base_top_n)
     tempo_ok = frame_counts > 1
 
-    # ambiguity gate (lib.rs:412-459): reported as multi_res_triggered; the
-    # escalation itself is outside the slice
+    # ambiguity gate (lib.rs:412-459)
     tol = max(2.0, cfg.bpm_resolution)
     look = lambda q: tg.cand_lookup_nearest(  # noqa: E731
         base["cand_bpm"], base["cand_score"], base["cand_valid"], q, tol)
@@ -171,6 +175,30 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     mr_triggered = ambiguous & tempo_ok
 
     chosen_bpm, chosen_conf = base["bpm"], base["confidence"]
+    mr_used = torch.zeros_like(ambiguous)
+    if cfg.enable_tempogram_multi_resolution:
+        mres = _escalate(samples, lengths, mr_triggered, cfg, sample_rate, base, feats,
+                         frame_counts, curves["full"], n_valid)
+        if mres is not None:
+            rel = torch.where(
+                chosen_bpm > EPSILON,
+                torch.maximum(mres["bpm"] / chosen_bpm.clamp_min(EPSILON),
+                              chosen_bpm / mres["bpm"].clamp_min(EPSILON)), 1.0)
+            family_related = torch.zeros_like(ambiguous)
+            for r in FAMILY_RELS:
+                family_related = family_related | ((rel - r).abs() < 0.05)
+            forbid_high = (chosen_bpm <= 180.0) & (mres["bpm"] > 180.0)
+            mr_better = ~forbid_high & (
+                (mres["confidence"] >= chosen_conf + 0.05)
+                | ((mres["method_agreement"] > base["method_agreement"])
+                   & (mres["confidence"] >= chosen_conf * 0.90))
+                | ((trap_low | trap_high) & family_related
+                   & (mres["confidence"] >= chosen_conf * 0.88)
+                   & (((mres["bpm"] >= 70.0) & (mres["bpm"] <= 180.0)) | (chosen_bpm > 180.0))))
+            mr_used = ambiguous & mr_better & mres["ok"]
+            chosen_bpm = torch.where(mr_used, mres["bpm"], chosen_bpm)
+            chosen_conf = torch.where(mr_used, mres["confidence"], chosen_conf)
+
     tempo_valid = tempo_ok & (chosen_bpm > 0.0)
     bpm = torch.where(tempo_valid, chosen_bpm, torch.where(legacy["ok"], legacy["bpm"], 0.0))
     bpm_confidence = torch.where(tempo_valid, chosen_conf,
@@ -231,7 +259,7 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
         "onset_consensus_used": consensus_used,
         "legacy_used": legacy_used,
         "multi_res_triggered": mr_triggered,
-        "multi_res_used": no,
+        "multi_res_used": mr_used,
         "percussive_triggered": no,
         "percussive_used": no,
         "warn_bpm_failed": warn_bpm,
@@ -241,6 +269,37 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     }
     out.update({f"confidence_{k}": v for k, v in conf.items()})
     return out
+
+
+def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base, feats,
+              frame_counts, novelty_full, n_valid):
+    """The multi-resolution estimate of the escalated tracks ``esc [B]``
+    scattered into batch-sized arrays (zeros, ``ok`` False elsewhere), or
+    None when no track escalates.
+
+    The escalated rows are gathered with one host read of their count, and
+    the sub-batch keeps the batch's T, so its curve lengths and FFT sizes
+    are those of the full batch. The base pass is the hop-512 pass when
+    ``cfg.hop_size`` is 512: its estimate, features and novelty go along and
+    only the hop-256 STFT runs anew."""
+    idx = torch.nonzero(esc).squeeze(1)
+    if idx.numel() == 0:
+        return None
+    take = lambda x: x.index_select(0, idx)  # noqa: E731
+    precomputed = None
+    if cfg.hop_size == 512:
+        precomputed = {
+            "est": {k: take(base[k]) for k in ("cand_bpm", "cand_score", "cand_valid")},
+            "feats": {k: take(feats[k]) for k in ("superflux", "superflux2", "energy", "hfc",
+                                                  "mel") if k in feats},
+            "frame_counts": take(frame_counts),
+            "novelty_full": take(novelty_full),
+            "n_valid": take(n_valid),
+        }
+    sub = mr.multi_resolution_estimate(take(samples), take(lengths), cfg, sample_rate,
+                                       precomputed)
+    return {k: torch.zeros((esc.shape[0],), dtype=v.dtype, device=v.device).index_copy_(0, idx, v)
+            for k, v in sub.items()}
 
 
 def _batch_device(samples, lengths, device) -> torch.device:
@@ -268,7 +327,8 @@ def _batch_device(samples, lengths, device) -> torch.device:
     return device
 
 
-def analyze_batch(samples, lengths, cfg: AnalysisConfig = SLICE_CONFIG, sample_rate: int = 44100,
+def analyze_batch(samples, lengths, cfg: AnalysisConfig = AnalysisConfig(),
+                  sample_rate: int = 44100,
                   caps: PipelineCaps = PipelineCaps(), device=None) -> Dict[str, torch.Tensor]:
     """User-facing entry: numpy arrays or tensors in, result-array dict out,
     every stage on ``device``. Without ``device`` the batch runs where its

@@ -159,8 +159,8 @@ def generate_beat_grid(bpm, bpm_confidence, onset_times, onset_valid, max_beats:
                        interval_scale=None, fill: bool = False) -> BeatGridTensor:
     """Full grid generation for a batch (mod.rs:108-250)."""
     ok = (bpm > 0.0) & (bpm <= 300.0) & (onset_valid.sum(dim=-1) >= 1)
-    beats = hmm.track_beats(bpm, onset_times, onset_valid, max_beats, anchor, interval_scale,
-                            fill)
+    beats, _states = hmm.track_beats(bpm, onset_times, onset_valid, max_beats, anchor,
+                                     interval_scale, fill)
     ok = ok & beats.valid.any(dim=-1)
     refined, has_variation = refine_beats(beats, bpm, bpm_confidence, onset_times, onset_valid,
                                           seg_beat_cap, max_segments)

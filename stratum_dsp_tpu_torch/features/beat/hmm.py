@@ -6,22 +6,25 @@ Gaussian emissions (sigma = 25 ms) on the distance to the nearest onset pick
 the beats (emission > 0.1, or every slot between the first and last
 supported ones with grid fill), confidence 0.7*emission + 0.3*alignment.
 
-The reference also runs the 5-state Viterbi decode, but its emissions are
-state-independent, so the decoded states never change the beats, and the
-pipeline drops them (grid.py:347). The port returns beats only; the decode
-(TPU kernel ``viterbi_decode``) is not on this path.
+The 5-state Viterbi decode runs on the emissions as in the reference
+(``ops/viterbi.py``; the CUDA kernel on the card). Its emissions are
+state-independent, so the decoded states never change the beats; the beat
+grid drops them (grid.py:347), as the reference does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...ops.masked import cdiv, fma, rdiv, searchsorted_nearest
+from ...ops.viterbi import viterbi_decode
 
 TIMING_TOLERANCE_S = 0.05
 EMISSION_SIGMA = TIMING_TOLERANCE_S / 2.0
+INV_TOLERANCE = float(np.float32(1.0) / np.float32(TIMING_TOLERANCE_S))  # f32, as XLA folds it
 EMISSION_THRESHOLD = 0.1
 EPSILON = 1e-10
 BIG = 1e9
@@ -37,8 +40,10 @@ class BeatTensor(NamedTuple):
 
 def track_beats(bpm, onset_times, onset_valid, max_beats: int,
                 anchor: Optional[torch.Tensor] = None,
-                interval_scale: Optional[torch.Tensor] = None, fill: bool = False) -> BeatTensor:
-    """Track beats for a batch (hmm.rs:122-441). ``anchor`` [B] overrides the
+                interval_scale: Optional[torch.Tensor] = None,
+                fill: bool = False) -> Tuple[BeatTensor, torch.Tensor]:
+    """Track beats for a batch (hmm.rs:122-441). Returns (BeatTensor, the
+    Viterbi states [B, max_beats] int32). ``anchor`` [B] overrides the
     first-onset phase anchor; ``interval_scale`` [B] scales the interval."""
     ok = (bpm > EPSILON) & (bpm <= 300.0) & (onset_valid.sum(dim=-1) >= 1)
     beat_interval = rdiv(60.0, torch.where(ok, bpm, 120.0))
@@ -60,6 +65,7 @@ def track_beats(bpm, onset_times, onset_valid, max_beats: int,
                                    onset_valid.sum(dim=-1), BIG)
     emission = torch.exp(cdiv(-(dist * dist), 2.0 * EMISSION_SIGMA * EMISSION_SIGMA))
     emission = torch.where(frame_valid, emission, 0.0)
+    states = viterbi_decode(emission)
 
     supported = frame_valid & (emission > EMISSION_THRESHOLD)
     if fill:
@@ -69,7 +75,11 @@ def track_beats(bpm, onset_times, onset_valid, max_beats: int,
         is_beat = frame_valid & (slot >= first_sup[:, None]) & (slot <= last_sup[:, None])
     else:
         is_beat = supported
-    align = torch.where(dist < TIMING_TOLERANCE_S, 1.0 - cdiv(dist, TIMING_TOLERANCE_S), 0.0)
-    conf = (0.7 * emission + 0.3 * align).clamp_max(1.0)
-    return BeatTensor(times=torch.where(is_beat, beat_times, 0.0),
-                      confidence=torch.where(is_beat, conf, 0.0), valid=is_beat)
+    # the reference's compiled arithmetic: a reciprocal multiply, and both
+    # multiply-adds contracted into FMAs
+    align = torch.where(dist < TIMING_TOLERANCE_S,
+                        fma(-dist, INV_TOLERANCE, 1.0), 0.0)
+    conf = fma(0.7, emission, 0.3 * align).clamp_max(1.0)
+    beats = BeatTensor(times=torch.where(is_beat, beat_times, 0.0),
+                       confidence=torch.where(is_beat, conf, 0.0), valid=is_beat)
+    return beats, states

@@ -1,31 +1,34 @@
-"""Novelty-curve extraction (port of the streaming, non-Pallas reducer of
+"""Novelty-curve extraction (port of the streaming reducer of
 ``stratum_dsp_tpu/features/period/novelty.py``, novelty.rs).
 
 A reducer plugged into ``ops.stft.stft_reduce`` emits small per-frame
 features while the 2048/512 STFT streams by in chunks:
 
 * ``superflux``  [B, F, n_bands] — max-filtered log-flux per band
+* ``superflux2`` [B, F, n_bands] — the same at stride 2 (frame f vs f-2),
+  for the multi-resolution escalation's hop-1024 curves
 * ``energy``     [B, F, n_bands] — band energies (sum |X|^2)
 * ``hfc``        [B, F, n_bands] — band HFC (sum k*|X|^2)
 * ``mel``        [B, F, n_mels]  — log-mel frames
 * ``onset_sflux``[B, F]          — per-frame-max-normalized spectral flux
 
-Flux-type features at frame f describe the transition f-1 -> f, so the
-novelty curves are the arrays shifted left by one with frame_count-1 valid.
-The stride-2 SuperFlux channel feeds only the multi-resolution escalation,
-which is outside the ported slice, so it is not emitted.
+Every chunk goes through ``ops/novelty.fused_novelty_features`` (the CUDA
+kernel on the card, its plain version on the CPU). Flux-type features at
+frame f describe the transition f-1 -> f, so the novelty curves are the
+arrays shifted left by one with frame_count-1 valid.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
-import numpy as np
 import torch
 
 from stratum_dsp_tpu.config import AnalysisConfig
 
 from ...ops import masked
+from ...ops.novelty import NoveltyTables, fused_novelty_features, unpack_features
 from ...ops.stft import hz_to_bin, mel_filterbank_matrix, stft_reduce
 
 EPSILON = 1e-10
@@ -51,92 +54,86 @@ def band_edges(cfg: AnalysisConfig, sample_rate: int, n_bins: int):
     ]
 
 
-def make_bpm_reducer(cfg: AnalysisConfig, sample_rate: int, frame_size: int, device):
-    """The per-chunk reducer, its carry initializer and the band names."""
+def _active_bands(cfg: AnalysisConfig, sample_rate: int, frame_size: int):
+    bands = band_edges(cfg, sample_rate, frame_size // 2 + 1)
+    return bands if cfg.enable_tempogram_band_fusion else bands[:1]
+
+
+def active_band_names(cfg: AnalysisConfig, sample_rate: int, frame_size: int):
+    """Band names the reducer emits for this config, in feature-axis order."""
+    return [name for (name, _, _, _) in _active_bands(cfg, sample_rate, frame_size)]
+
+
+@functools.lru_cache(maxsize=8)
+def novelty_tables(cfg: AnalysisConfig, sample_rate: int, frame_size: int) -> NoveltyTables:
+    """The reducer's constant tables for this config, built once in numpy
+    (and copied once to each device by ``NoveltyTables.on``: a pageable
+    host-to-device copy per batch would wait for the stream)."""
     n_bins = frame_size // 2 + 1
-    bands = band_edges(cfg, sample_rate, n_bins)
-    active = bands if cfg.enable_tempogram_band_fusion else bands[:1]
-    n_act = len(active)
-    sf_k = max(cfg.tempogram_superflux_max_filter_bins, 1)
     mel_w = None
     if cfg.enable_tempogram_mel_novelty:
-        mel_w = torch.as_tensor(mel_filterbank_matrix(
-            sample_rate, n_bins, cfg.tempogram_mel_n_mels, cfg.tempogram_mel_fmin_hz,
-            cfg.tempogram_mel_fmax_hz), device=device)
+        mel_w = mel_filterbank_matrix(sample_rate, n_bins, cfg.tempogram_mel_n_mels,
+                                      cfg.tempogram_mel_fmin_hz, cfg.tempogram_mel_fmax_hz)
+    bands = [(s, e) for (_, s, e, _) in _active_bands(cfg, sample_rate, frame_size)]
+    return NoveltyTables(tuple(bands), max(cfg.tempogram_superflux_max_filter_bins, 1), mel_w)
 
-    # band energy / HFC as one [K, 2*n_bands] matmul over |X|^2
-    ew = np.zeros((n_bins, 2 * n_act), np.float32)
-    for i, (_, s, e, _) in enumerate(active):
-        ew[s:e, 2 * i] = 1.0
-        ew[s:e, 2 * i + 1] = np.arange(s, e, dtype=np.float32)
-    ew = torch.as_tensor(ew, device=device)
 
-    # The band-clamped max filter differs from the full-band one only within
-    # sf_k bins of a band edge: each band's sum is an interior part read off
-    # the full-band d^2 (a [K, n_bands] mask matmul) plus exact edge runs.
-    sf_mask = np.zeros((n_bins, n_act), np.float32)
-    sf_mask[:, 0] = 1.0
-    edge_runs = []
-    for i, (_, s, e, _) in enumerate(active):
-        if i == 0:
-            continue
-        if e - s <= 2 * sf_k:
-            edge_runs.append((i, [(s, e, 0, e - s)]))
-        else:
-            sf_mask[s + sf_k:e - sf_k, i] = 1.0
-            edge_runs.append((i, [(s, s + 2 * sf_k, 0, sf_k), (e - 2 * sf_k, e, sf_k, 2 * sf_k)]))
-    sf_mask = torch.as_tensor(sf_mask, device=device)
+def make_bpm_reducer(cfg: AnalysisConfig, sample_rate: int, frame_size: int, device,
+                     emit_stride2=None, emit_onset_flux: bool = True):
+    """The per-chunk reducer, its carry initializer and the band names.
 
-    def band_sf_sums(log_prev, log_cur, d2):
-        sums = torch.matmul(d2, sf_mask)
-        cols = [sums[..., i] for i in range(n_act)]
-        for i, runs in edge_runs:
-            extra = 0.0
-            for lo, hi, t0, t1 in runs:
-                pm = masked.max_pool_1d(log_prev[..., lo:hi], sf_k)
-                d = (log_cur[..., lo + t0:lo + t1] - pm[..., t0:t1]).clamp_min(0.0)
-                extra = extra + (d * d).sum(dim=-1)
-            cols[i] = cols[i] + extra
-        return torch.stack(cols, dim=-1)
+    ``emit_stride2`` (default: ``cfg.enable_tempogram_multi_resolution``)
+    adds the stride-2 SuperFlux the escalation reads; auxiliary passes (the
+    hop-256 escalation pass) turn it and ``emit_onset_flux`` off."""
+    if emit_stride2 is None:
+        emit_stride2 = cfg.enable_tempogram_multi_resolution
+    tables = novelty_tables(cfg, sample_rate, frame_size)
+    tables.on(device)  # upload the tables before the first chunk
+    use_mel = cfg.enable_tempogram_mel_novelty
+    flags = dict(emit_stride2=emit_stride2, emit_onset=emit_onset_flux, use_mel=use_mel)
 
     def reducer(spec, fidx, fvalid, carry):
         spec = spec.to(torch.float32)
-        ext = torch.cat([carry, spec], dim=1)  # previous two frames + chunk
-        log_ext = torch.log1p(ext.clamp_min(0.0))
-        log_cur, log_prev = log_ext[:, 2:], log_ext[:, 1:-1]
-        d = (log_cur - masked.max_pool_1d(log_prev, sf_k)).clamp_min(0.0)
-        outs = {"superflux": torch.sqrt(band_sf_sums(log_prev, log_cur, d * d))}
-        eh = torch.matmul(spec * spec, ew)  # (energy, hfc) interleaved per band
-        outs["energy"], outs["hfc"] = eh[..., 0::2], eh[..., 1::2]
-        if mel_w is not None:
-            outs["mel"] = torch.matmul(log_cur, mel_w)
-        # onset spectral flux: per-frame max-normalize, HWR L2 diff
-        ext_max = ext.amax(dim=-1, keepdim=True)
-        cur_max, prev_max = ext_max[:, 2:], ext_max[:, 1:-1]
-        cur_n = torch.where(cur_max > EPSILON, spec / cur_max.clamp_min(EPSILON), 0.0)
-        prev_n = torch.where(prev_max > EPSILON, ext[:, 1:-1] / prev_max.clamp_min(EPSILON), 0.0)
-        dn = (cur_n - prev_n).clamp_min(0.0)
-        outs["onset_sflux"] = torch.sqrt((dn * dn).sum(dim=-1))
-        return outs, spec[:, -2:, :]
+        packed = fused_novelty_features(spec, carry, tables, **flags)
+        return unpack_features(packed, tables.nb, tables.nm, **flags), spec[:, -2:, :]
 
     def carry_init(b):
-        return torch.zeros((b, 2, n_bins), dtype=torch.float32, device=device)
+        return torch.zeros((b, 2, tables.n_bins), dtype=torch.float32, device=device)
 
-    return reducer, carry_init, [name for (name, _, _, _) in active]
+    return reducer, carry_init, active_band_names(cfg, sample_rate, frame_size)
 
 
 def compute_bpm_spectral_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
-                                  frame_size: int, hop: int, chunk_frames: int = 512):
+                                  frame_size: int, hop: int, chunk_frames: int = 512,
+                                  emit_stride2=None, emit_onset_flux: bool = True):
     """Stream the BPM STFT; returns (features, frame_counts [B], n_frames_padded)."""
     chunk_frames = int(min(chunk_frames,
                            max(60_000_000 // max(samples.shape[0] * frame_size, 1), 128)))
-    reducer, carry_init, band_names = make_bpm_reducer(cfg, sample_rate, frame_size,
-                                                       samples.device)
+    reducer, carry_init, band_names = make_bpm_reducer(
+        cfg, sample_rate, frame_size, samples.device, emit_stride2=emit_stride2,
+        emit_onset_flux=emit_onset_flux)
     outs, nf_padded, frame_counts = stft_reduce(
         samples, lengths, frame_size, hop, reducer, carry_init,
         chunk_frames=chunk_frames, bf16=cfg.stft_bf16)
     outs["band_names"] = band_names
     return outs, frame_counts, nf_padded
+
+
+def decimate_features_2x(features: Dict[str, torch.Tensor], frame_counts):
+    """Hop-2H per-frame features from hop-H streamed features: hop-2H frames
+    are the even hop-H frames, so energy, HFC and mel decimate by 2 and the
+    flux comes from the stride-2 SuperFlux channel (replaces the reference's
+    hop-1024 STFT, multi_resolution.rs:237-239). Returns (features, counts)."""
+    if "superflux2" not in features:
+        raise ValueError("decimate_features_2x: the reducer must emit stride-2 superflux")
+    out = {"superflux": features["superflux2"][:, ::2, :],
+           "energy": features["energy"][:, ::2, :],
+           "hfc": features["hfc"][:, ::2, :]}
+    if "band_names" in features:
+        out["band_names"] = features["band_names"]
+    if "mel" in features:
+        out["mel"] = features["mel"][:, ::2, :]
+    return out, torch.where(frame_counts > 0, (frame_counts - 1) // 2 + 1, 0)
 
 
 def mel_superflux_from_frames(mel_frames, nov_mask, max_filter_mels: int):

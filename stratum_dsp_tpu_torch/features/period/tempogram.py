@@ -188,9 +188,12 @@ def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig
 
 
 def cand_lookup_nearest(cand_bpm, cand_score, cand_valid, query, tol: float):
-    """Score of the candidate nearest to ``query [B]`` within ``tol``, else 0
-    (multi_resolution.rs:282-293)."""
-    d = torch.where(cand_valid, (cand_bpm - query[:, None]).abs(), float("inf"))
-    nearest = d.argmin(dim=-1, keepdim=True)
-    dmin = torch.gather(d, 1, nearest)[:, 0]
-    return torch.where(dmin <= tol, torch.gather(cand_score, 1, nearest)[:, 0], 0.0)
+    """Score of the candidate nearest to each query within ``tol``, else 0
+    (multi_resolution.rs:282-293). ``cand_* [B, S]``, ``query [B, ...]``;
+    the result has the query's shape. Ties go to the first candidate."""
+    q = query.reshape(query.shape[0], -1, 1)  # [B, Q, 1]
+    d = torch.where(cand_valid[:, None, :], (cand_bpm[:, None, :] - q).abs(), float("inf"))
+    nearest = d.argmin(dim=-1, keepdim=True)  # [B, Q, 1]
+    dmin = torch.gather(d, 2, nearest)[..., 0]
+    vals = torch.gather(cand_score[:, None, :].expand(d.shape), 2, nearest)[..., 0]
+    return torch.where(dmin <= tol, vals, 0.0).reshape(query.shape)

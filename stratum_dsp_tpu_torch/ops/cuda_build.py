@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``stratum_dsp_tpu_torch/csrc/*.cu`` have a plain C interface.
-On first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+On first use they are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc``
+process per source, all started together, and linked into one shared
 library under ``csrc/_build/`` (named by a hash of the sources, so an edited
-source is rebuilt) and loaded with ``ctypes``. Nothing here runs at import
+source is rebuilt) that is loaded with ``ctypes``. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
 """
 
@@ -21,9 +22,11 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC_DIR / "_build"
+# IEEE division and square root, denormals kept (the Viterbi kernel's
+# products underflow through them): nvcc's defaults, stated
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
 )
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
@@ -32,6 +35,9 @@ _SIGNATURES = {
     "stratum_polyphase_stage2": ([_vp, _vp, _vp] + [_int] * 7 + [_vp], _int),
     "stratum_downbeat_mask": ([_vp, _vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_downbeat_max_slots": ([], _int),
+    "stratum_fused_novelty": ([_vp] * 6 + [_int] * 8 + [_vp], _int),
+    "stratum_viterbi_decode": ([_vp, _vp, _vp, _int, _int, _vp], _int),
+    "stratum_viterbi_max_frames": ([], _int),
 }
 
 
@@ -66,20 +72,27 @@ def build(verbose: bool = False) -> tuple:
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        reports = [(src.name, proc.communicate()[0], proc.returncode)
+                   for src, proc in zip(_sources(), procs)]
+        failed = [f"{name} ({rc}):\n{log}" for name, log, rc in reports if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
         if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            for name, log, _ in reports:
+                print(f"{name}:\n{log}", end="")
+        lib = os.path.join(tmp, path.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, path)
     return path, time.perf_counter() - t0
 
 

@@ -1,4 +1,5 @@
-"""The port runs where JAX cannot be imported (the card's machine has none)."""
+"""The port runs where JAX cannot be imported (the card's machine has none),
+under ``SLICE_CONFIG`` and under the default ``AnalysisConfig``."""
 
 import subprocess
 import sys
@@ -14,11 +15,15 @@ import torch
 torch.set_num_threads(2)
 import stratum_dsp_tpu_torch as port
 from stratum_dsp_tpu_torch import testing
+caps = port.PipelineCaps(max_onsets=256, max_beats=256, seg_beat_cap=32, max_segments=12)
 x = testing.kick_patterns([120.0], 6.0)
-out = port.analyze_batch(x, torch.tensor([x.shape[1]]), port.SLICE_CONFIG, 44100,
-                         port.PipelineCaps(max_onsets=256, max_beats=256, seg_beat_cap=32,
-                                           max_segments=12))
+out = port.analyze_batch(x, torch.tensor([x.shape[1]]), port.SLICE_CONFIG, 44100, caps)
 assert bool(out["ok"][0]) and abs(float(out["bpm"][0]) - 120.0) < 2.0, out["bpm"]
+# the default AnalysisConfig, with a trap-zone track that escalates
+x = testing.kick_patterns([120.0, 172.0], 6.0)
+out = port.analyze_batch(x, torch.tensor([x.shape[1]] * 2), caps=caps)
+assert bool(out["multi_res_triggered"][1]), out["multi_res_triggered"]
+assert abs(float(out["bpm"][0]) - 120.0) < 2.0, out["bpm"]
 assert sys.modules["jax"] is None
 print("bpm", float(out["bpm"][0]))
 """

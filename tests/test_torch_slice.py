@@ -212,7 +212,7 @@ def test_constant_tables_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enable_tempogram_multi_resolution", True),
+    ("beat_contrast_fractional", True),
     ("enable_hpss_onsets", True),
     ("enable_tempogram_percussive_fallback", True),
     ("enable_bpm_fusion", True),
