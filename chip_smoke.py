@@ -9,12 +9,16 @@ one line each:
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: one ``nvcc`` per source for sm_90a, all at once, with the time;
 3-6. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, with both times: A (polyphase stage 2) bit for bit, B
-   (downbeat walk) and C (Viterbi decode, with rows that underflow) exactly,
-   D (fused novelty reducer, base and auxiliary variants) within 1e-5 of
-   each output group's largest value;
-7. fixture batches through the port on the CPU (plain versions) and on the
-   card (kernels), compared output by output
+   path's shapes, with both times and the kernel's bound (the least time the
+   card could take: bytes over 3.35 TB/s or operations over 67 TFLOP/s,
+   whichever is larger): A (polyphase stage 2) bit for bit, B (downbeat
+   walk) and C (Viterbi decode, with rows that underflow) exactly, D (fused
+   novelty reducer, base and auxiliary variants) within 1e-5 of each output
+   group's largest value; A and D also at ragged shapes (short and uneven
+   frame counts, bins at a block's edge, small batches, mel and bands off);
+7. fixture batches through the port on the CPU (``device="cpu"``, plain
+   versions) and on the card (the default device, kernels), compared output
+   by output
    (``stratum_dsp_tpu_torch.testing.assert_outputs_match``): the slice batch
    under ``SLICE_CONFIG``, and under the default config kicks that take
    every branch of the multi-resolution escalation;
@@ -46,7 +50,6 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-B_REAL, SECONDS_REAL = 40, 180.0
 TIMED_BATCHES = 5  # host-side gaps make single batches spread by ~20%
 
 
@@ -59,18 +62,15 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def bound_text(bound: dict, ms: float) -> str:
+    """'bound 0.0142 ms by bytes (4.3% of it reached)' and, for a kernel
+    that is one dependent chain, an estimate of the chain's time from assumed
+    instruction latencies (no bound, and not measured)."""
+    text = (f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"({100.0 * bound['bound_ms'] / ms:.1f}% of it reached)")
+    if "chain_floor_ms" in bound:
+        text += f", dependent chain estimated at {bound['chain_floor_ms']:.4f} ms"
+    return text
 
 
 @contextlib.contextmanager
@@ -121,9 +121,11 @@ def main() -> int:
     except ImportError as exc:
         print(f"FAIL: run from a checkout of the repository ({exc})", flush=True)
         return 1
-    from stratum_dsp_tpu_torch import testing
+    from stratum_dsp_tpu_torch import measure, testing
+    from stratum_dsp_tpu_torch.measure import B_REAL, SECONDS_REAL, cuda_time_ms
     from stratum_dsp_tpu_torch.features.period.novelty import novelty_tables
-    from stratum_dsp_tpu_torch.ops import cuda_build
+    from stratum_dsp_tpu_torch.ops import cuda_build, downbeats, polyphase, viterbi
+    from stratum_dsp_tpu_torch.ops import novelty as novelty_ops
     from stratum_dsp_tpu_torch.ops.downbeats import downbeat_mask, downbeat_mask_plain
     from stratum_dsp_tpu_torch.ops.novelty import (fused_novelty_features,
                                                    fused_novelty_features_plain, unpack_features)
@@ -149,11 +151,9 @@ def main() -> int:
 
     # 3. kernel A at the main path's shape: B=40, _auto_chunk -> 192-frame
     # chunks, ext = 192 + 2*12 = 216, EBP = 240, KP = 1024, keep = 931
-    r, ext, keep, kp = 16, 216, 931, 1024
-    ebp = -(-(ext + r) // r) * r
-    rng = np.random.default_rng(7)
-    bd = torch.as_tensor(rng.standard_normal((B_REAL, ebp, 2 * kp), np.float32) * 4.0,
-                         device=dev).to(torch.bfloat16)
+    (bd, r, ext, keep), (spec, prev2, tables) = measure.kernel_inputs(dev)
+    ebp, kp = bd.shape[1], bd.shape[2] // 2
+    rng = np.random.default_rng(11)
     got = polyphase_stage2(bd, r, ext, keep)
     torch.cuda.synchronize()
     ref = polyphase_stage2_plain(bd, r, ext, keep)
@@ -163,9 +163,26 @@ def main() -> int:
         fail(f"kernel A is not bit-equal to its plain version: max|d| = {err_a}")
     ms_a = cuda_time_ms(lambda: polyphase_stage2(bd, r, ext, keep), 50)
     plain_ms_a = cuda_time_ms(lambda: polyphase_stage2_plain(bd, r, ext, keep), 10)
+    bound_a = polyphase.bound_ms(B_REAL, ebp, kp, r, ext, keep)
     phase("kernel A", f"polyphase_stage2 [{B_REAL},{ebp},{2 * kp}] bf16 -> [{B_REAL},{ext},"
                       f"{keep}]: bit-equal to the plain version; "
-                      f"kernel {ms_a:.4f} ms, plain {plain_ms_a:.4f} ms")
+                      f"kernel {ms_a:.4f} ms, plain {plain_ms_a:.4f} ms, "
+                      f"{bound_text(bound_a, ms_a)}")
+    # ragged shapes: the fixture batches' chunk (B=4, one long chunk), fewer
+    # frames than one tile, bins one past a warp's and a block's edge, one
+    # bin (column 0 alone, S[-1] = conj S[1]), spare rows past ext + R - 1
+    ragged_a = ((4, 536, 931, 1024, 0), (3, 5, 249, 256, 0), (2, 65, 63, 128, 16),
+                (1, 216, 1, 128, 0), (5, 64, 62, 128, 32), (2, 129, 930, 1024, 0))
+    for b_, ext_, keep_, kp_, spare in ragged_a:
+        bd_ = measure.stage2_input(rng, b_, ext_, kp_, dev, spare)
+        ebp_ = bd_.shape[1]
+        got = polyphase_stage2(bd_, r, ext_, keep_)
+        torch.cuda.synchronize()
+        if not torch.equal(got, polyphase_stage2_plain(bd_, r, ext_, keep_)):
+            fail(f"kernel A is not bit-equal to its plain version at [{b_},{ebp_},{2 * kp_}], "
+                 f"ext {ext_}, keep {keep_}")
+    phase("kernel A", f"bit-equal at {len(ragged_a)} ragged shapes "
+                      f"(B, ext, keep, KP, spare rows): {ragged_a}")
 
     # 4. kernel B at the main path's shape: N = max(max_segments*seg_beat_cap,
     # max_beats) = 3072 beat slots with the default capacities
@@ -190,8 +207,10 @@ def main() -> int:
              f"{int((got_b != ref_b).sum())} slots")
     ms_b = cuda_time_ms(lambda: downbeat_mask(times, n_beats, bar), 50)
     plain_ms_b = cuda_time_ms(lambda: downbeat_mask_plain(times, n_beats, bar), 2)
+    bound_b = downbeats.bound_ms(B_REAL, n)
     phase("kernel B", f"downbeat_mask [{B_REAL},{n}]: exact ({int(got_b.sum())} downbeats); "
-                      f"kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms")
+                      f"kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, "
+                      f"{bound_text(bound_b, ms_b)}")
 
     # 5. kernel C at the main path's shape: B=40, max_beats=1024 beat slots;
     # uniform rows, a row of 1e-3 that underflows through denormals to 0,
@@ -209,38 +228,92 @@ def main() -> int:
         fail(f"kernel C disagrees with its plain version in {int((got_c != ref_c).sum())} slots")
     ms_c = cuda_time_ms(lambda: viterbi_decode(em), 50)
     plain_ms_c = cuda_time_ms(lambda: viterbi_decode_plain(em), 2)
+    bound_c = viterbi.bound_ms(B_REAL, caps.max_beats)
     phase("kernel C", f"viterbi_decode [{B_REAL},{caps.max_beats}]: exact; "
-                      f"kernel {ms_c:.4f} ms, plain {plain_ms_c:.4f} ms")
+                      f"kernel {ms_c:.4f} ms, plain {plain_ms_c:.4f} ms, "
+                      f"{bound_text(bound_c, ms_c)}")
 
     # 6. kernel D at the main path's shape: B=40, 256-frame chunks of the
-    # 2048-point BPM STFT; the base pass's variant and the hop-256 pass's
-    tables = novelty_tables(port.AnalysisConfig(), testing.SAMPLE_RATE, 2048)
-    spec = torch.as_tensor(rng.random((B_REAL, 256, tables.n_bins), np.float32) * 3.0, device=dev)
-    spec[5, 100:] = 0.0  # the zeroed frames past a track's end
-    prev2 = torch.as_tensor(rng.random((B_REAL, 2, tables.n_bins), np.float32), device=dev)
-    err_d, ms_d, plain_ms_d = 0.0, {}, {}
-    for variant, (s2, onset) in (("base", (True, True)), ("aux", (False, False))):
-        flags = dict(emit_stride2=s2, emit_onset=onset, use_mel=True)
-        got_d = fused_novelty_features(spec, prev2, tables, **flags)
+    # 2048-point BPM STFT (with the zeroed frames past a track's end); the
+    # base pass's variant and the hop-256 pass's
+    err_d, ms_d, plain_ms_d, bound_d = 0.0, {}, {}, {}
+
+    def check_d(spec, prev2, tables, s2, onset, mel, what):
+        """Hold kernel D to its plain version: 1e-5 of each output group's
+        largest value (the summation order differs; the JAX package's own
+        bound), and the same result when launched again (no atomics)."""
+        flags = dict(emit_stride2=s2, emit_onset=onset, use_mel=mel)
+        got = fused_novelty_features(spec, prev2, tables, **flags)
         torch.cuda.synchronize()
-        ref_d = fused_novelty_features_plain(spec, prev2, tables, **flags)
-        err_d = max(err_d, float((got_d - ref_d).abs().max()))
-        # summation order differs from the plain version's: 1e-5 of each
-        # output group's largest value, the JAX package's own bound
-        unpack = lambda x: unpack_features(x, tables.nb, tables.nm, s2, onset, True)  # noqa: E731
-        groups = {k: (unpack(got_d)[k], v) for k, v in unpack(ref_d).items()}
+        ref = fused_novelty_features_plain(spec, prev2, tables, **flags)
+        unpack = lambda x: unpack_features(x, tables.nb, tables.nm, s2, onset, mel)  # noqa: E731
+        groups = {k: (unpack(got)[k], v) for k, v in unpack(ref).items()}
         rel = {k: float((g - r).abs().max() / r.abs().max().clamp_min(1e-12))
                for k, (g, r) in groups.items()}
-        if max(rel.values()) >= 1e-5:
-            fail(f"kernel D ({variant}) is off its plain version: relative errors {rel}")
+        used = 4 * tables.nb + tables.nm + 1
+        if not max(rel.values()) < 1e-5 or bool(got[..., used:].any()):
+            fail(f"kernel D ({what}) is off its plain version: relative errors {rel}")
+        if not torch.equal(got, fused_novelty_features(spec, prev2, tables, **flags)):
+            fail(f"kernel D ({what}) is not deterministic")
+        return float((got - ref).abs().max()), max(rel.values()), flags
+
+    # the wrapper sizes a block's shared memory as the kernel lays it out
+    sizes = (tables.mel_packed[1].size, len(tables.edge_windows), len(tables.mel_tasks[0]))
+    smem_c = cuda_build.library().stratum_fused_novelty_smem(tables.n_bins, novelty_ops.FRAME_TILE,
+                                                             *sizes)
+    if smem_c != novelty_ops.kernel_smem_bytes(tables.n_bins, novelty_ops.FRAME_TILE, *sizes):
+        fail(f"kernel D: the kernel lays out {smem_c} bytes of shared memory, the wrapper asks "
+             f"for {novelty_ops.kernel_smem_bytes(tables.n_bins, novelty_ops.FRAME_TILE, *sizes)}")
+    for variant, flags in measure.D_VARIANTS.items():
+        err, rel, flags = check_d(spec, prev2, tables, flags["emit_stride2"],
+                                  flags["emit_onset"], flags["use_mel"], variant)
+        err_d = max(err_d, err)
         ms_d[variant] = cuda_time_ms(lambda: fused_novelty_features(spec, prev2, tables, **flags),
                                      50)
         plain_ms_d[variant] = cuda_time_ms(
             lambda: fused_novelty_features_plain(spec, prev2, tables, **flags), 10)
+        bound_d[variant] = novelty_ops.bound_ms(
+            B_REAL, 256, tables.n_bins, tables.nb, tables.nm, tables.mel_packed[1].size,
+            tables.sf_k, **flags)
         phase("kernel D", f"fused_novelty_features {variant} [{B_REAL},256,{tables.n_bins}] -> "
                           f"[{B_REAL},256,128]: largest relative error per group "
-                          f"{max(rel.values()):.3g}; kernel {ms_d[variant]:.4f} ms, "
-                          f"plain {plain_ms_d[variant]:.4f} ms")
+                          f"{rel:.3g}; kernel {ms_d[variant]:.4f} ms, "
+                          f"plain {plain_ms_d[variant]:.4f} ms, "
+                          f"{bound_text(bound_d[variant], ms_d[variant])}")
+    # ragged shapes: the escalation's gathered rows (B=12), one track, frame
+    # counts below a tile and no multiple of it, rows of zeros and rows whose
+    # maximum is below the onset flux's epsilon; then mel off, bands off, a
+    # max-filter radius other than 4, and 2048 bins with sub-bands narrower
+    # than the filter
+    cfg = port.AnalysisConfig()
+    table_sets = {
+        "default": tables,
+        "mel off": novelty_tables(cfg.replace(enable_tempogram_mel_novelty=False),
+                                  testing.SAMPLE_RATE, 2048),
+        "full band only": novelty_tables(cfg.replace(enable_tempogram_band_fusion=False),
+                                         testing.SAMPLE_RATE, 2048),
+        "radius 2": novelty_tables(cfg.replace(tempogram_superflux_max_filter_bins=2),
+                                   testing.SAMPLE_RATE, 2048),
+        "2048 bins": novelty_ops.NoveltyTables(((0, 2048), (0, 3), (3, 9), (1000, 2048)), 4, None),
+    }
+    ragged_d = (("default", 12, 256, False, False), ("default", 12, 256, True, True),
+                ("default", 1, 5, True, True), ("default", 3, 37, True, True),
+                ("default", 2, 37, False, False), ("default", 1, 1, True, True),
+                ("mel off", 3, 37, True, True), ("mel off", 40, 256, False, False),
+                ("full band only", 2, 40, True, True), ("radius 2", 2, 40, True, True),
+                ("2048 bins", 2, 21, True, True))
+    for name, b_, c_, s2, onset in ragged_d:
+        tab = table_sets[name]
+        spec_ = torch.as_tensor(rng.random((b_, c_, tab.n_bins), np.float32) * 3.0, device=dev)
+        prev_ = torch.as_tensor(rng.random((b_, 2, tab.n_bins), np.float32), device=dev)
+        spec_[0, c_ // 2:] = 0.0
+        spec_[-1, c_ // 3] *= 1e-11
+        if c_ > 2:
+            prev_[-1] *= 1e-11
+        check_d(spec_, prev_, tab, s2, onset, tab.mel_w is not None,
+                f"{name} [{b_},{c_},{tab.n_bins}] stride2={s2} onset={onset}")
+    phase("kernel D", f"within 1e-5 per group and deterministic at {len(ragged_d)} ragged "
+                      f"shapes (tables, B, C, stride 2, onset): {ragged_d}")
 
     # 7. fixture batches, CPU (plain versions) vs card (kernels): the slice
     # batch under SLICE_CONFIG, and under the default config a batch that
@@ -248,19 +321,22 @@ def main() -> int:
     fixture = [testing.kick_patterns([120.0], 8.0)[0], testing.kick_patterns([128.0], 7.5)[0],
                testing.c_major_scale(), testing.silence_sandwich(5.0, 5.0)]
     samples, lengths = testing.pad_batch(fixture)
-    out_cpu = port.analyze_batch(samples, lengths, port.SLICE_CONFIG)
-    out_gpu = port.analyze_batch(samples.to(dev), lengths.to(dev), port.SLICE_CONFIG)
+    out_cpu = port.analyze_batch(samples, lengths, port.SLICE_CONFIG, device="cpu")
+    out_gpu = port.analyze_batch(samples, lengths, port.SLICE_CONFIG)  # no device: the card
     torch.cuda.synchronize()
     # the silence sandwich (track 3) is a steady tone: its tempogram
     # confidences ride on the BPM STFT matmul's accumulation order (cuBLAS
     # here, MKL or oneDNN on the CPU) and are held to the noise-floor bound
+    if out_cpu["bpm"].device.type != "cpu" or out_gpu["bpm"].device.type != "cuda":
+        fail(f"analyze_batch ran on {out_gpu['bpm'].device} without a device argument and on "
+             f"{out_cpu['bpm'].device} when asked for the CPU")
     worst = testing.assert_outputs_match(out_cpu, out_gpu, noise_floor_track=3)
     phase("slice cpu/gpu", f"{len(out_cpu)} outputs agree on the fixture batch "
                            f"(largest float difference {worst[1]:.3g} in {worst[0]})")
     samples = testing.kick_patterns([75.0, 120.0, 128.0, 172.0], 8.0)
     lengths = torch.full((4,), samples.shape[1], dtype=torch.int64)
-    out_cpu = port.analyze_batch(samples, lengths)
-    out_gpu = port.analyze_batch(samples.to(dev), lengths.to(dev))
+    out_cpu = port.analyze_batch(samples, lengths, device="cpu")
+    out_gpu = port.analyze_batch(samples.numpy(), lengths.numpy())  # host arrays in
     torch.cuda.synchronize()
     worst = testing.assert_outputs_match(out_cpu, out_gpu)
     trig, used = out_gpu["multi_res_triggered"].cpu(), out_gpu["multi_res_used"].cpu()
@@ -273,14 +349,7 @@ def main() -> int:
 
     # 8-10. real size: 40 tracks x 180 s made on the card
     n_samples = int(SECONDS_REAL * testing.SAMPLE_RATE)
-    lengths = torch.full((B_REAL,), n_samples, dtype=torch.int64, device=dev)
-    scale = testing.c_major_scale(device=dev)
-    scale = scale.repeat(-(-n_samples // scale.shape[0]))[:n_samples]
-
-    def make_batch(seeds):
-        kicks = testing.kick_patterns(seeds, SECONDS_REAL, device=dev)
-        rest = scale[None, :].expand(B_REAL - len(seeds), n_samples)
-        return torch.cat([kicks, rest], dim=0)
+    batches, lengths = measure.real_size_mixes(dev)
 
     def run(batch, cfg):
         """One batch with every launch count set to 0 before and read after."""
@@ -320,8 +389,7 @@ def main() -> int:
         return gates, res, bpm
 
     # 8. the slice's path (SLICE_CONFIG, multi-resolution off), one counted batch
-    seeds = np.round(np.linspace(85, 168, 32)).astype(np.float32)
-    clean = make_batch(seeds)
+    seeds, clean = measure.CLEAN_BPMS, batches["clean"]
     run(clean, port.SLICE_CONFIG)  # warm-up
     out, wall, launches = run(clean, port.SLICE_CONFIG)
     bpm = out["bpm"][:32].cpu().numpy()
@@ -338,11 +406,9 @@ def main() -> int:
 
     # 9-10. the default config on both mixes: a warm-up, then five timed
     # batches; the first is the one whose launches are counted and gated
-    adv_seeds = np.concatenate([np.round(np.linspace(85.0, 168.0, 28)),
-                                np.round(np.linspace(56.0, 79.0, 6)),
-                                np.round(np.linspace(172.0, 199.0, 6))]).astype(np.float32)
-    mixes = (("clean", seeds, make_batch(seeds), np.ones(32, bool)),
-             ("adversarial", adv_seeds, make_batch(adv_seeds), np.arange(40) < 28))
+    mixes = (("clean", seeds, clean, np.ones(32, bool)),
+             ("adversarial", measure.ADVERSARIAL_BPMS, batches["adversarial"],
+              np.arange(40) < 28))
     main_launches, rates_by_mix = None, {}
     for name, mix_seeds, batch, core in mixes:
         run(batch, port.AnalysisConfig())  # warm-up
@@ -372,28 +438,30 @@ def main() -> int:
     phase("stages, adversarial", f"batch {wall * 1000:.1f} ms; " + "; ".join(
         f"{k} {[round(t, 1) for t in v]} ms" for k, v in stages.items()))
 
+    def entry(name, source, replaces, err, ms, plain_ms, bound):
+        """One kernel's line: times measured above, the bound computed from
+        this run's shapes. No single PyTorch call computes any of the four
+        functions, so there is no library time."""
+        return {"name": name, "route": "cuda",
+                "source": f"stratum_dsp_tpu_torch/csrc/{source}",
+                "replaces": f"stratum_dsp_tpu/ops/{replaces}",
+                "launches": main_launches[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"], "share_of_bound": bound["bound_ms"] / ms,
+                "library_ms": None, "library_call": None}
+
     kernels = [
-        {"name": "polyphase_stage2", "route": "cuda",
-         "source": "stratum_dsp_tpu_torch/csrc/polyphase_stage2.cu",
-         "replaces": "stratum_dsp_tpu/ops/polyphase_pallas.py:118",
-         "launches": main_launches["polyphase_stage2"], "max_abs_err": err_a,
-         "ms": ms_a, "plain_ms": plain_ms_a},
-        {"name": "downbeat_mask", "route": "cuda",
-         "source": "stratum_dsp_tpu_torch/csrc/downbeat_mask.cu",
-         "replaces": "stratum_dsp_tpu/ops/downbeats_pallas.py:59",
-         "launches": main_launches["downbeat_mask"], "max_abs_err": err_b,
-         "ms": ms_b, "plain_ms": plain_ms_b},
-        {"name": "viterbi_decode", "route": "cuda",
-         "source": "stratum_dsp_tpu_torch/csrc/viterbi_decode.cu",
-         "replaces": "stratum_dsp_tpu/ops/viterbi_pallas.py:108",
-         "launches": main_launches["viterbi_decode"], "max_abs_err": err_c,
-         "ms": ms_c, "plain_ms": plain_ms_c},
-        {"name": "fused_novelty_features", "route": "cuda",
-         "source": "stratum_dsp_tpu_torch/csrc/fused_novelty.cu",
-         "replaces": "stratum_dsp_tpu/ops/novelty_pallas.py:194",
-         "launches": main_launches["fused_novelty_features"], "max_abs_err": err_d,
-         "ms": ms_d["base"], "plain_ms": plain_ms_d["base"]},
+        entry("polyphase_stage2", "polyphase_stage2.cu", "polyphase_pallas.py:118",
+              err_a, ms_a, plain_ms_a, bound_a),
+        entry("downbeat_mask", "downbeat_mask.cu", "downbeats_pallas.py:59",
+              err_b, ms_b, plain_ms_b, bound_b),
+        entry("viterbi_decode", "viterbi_decode.cu", "viterbi_pallas.py:108",
+              err_c, ms_c, plain_ms_c, bound_c),
+        entry("fused_novelty_features", "fused_novelty.cu", "novelty_pallas.py:194",
+              err_d, ms_d["base"], plain_ms_d["base"], bound_d["base"]),
     ]
+    kernels[3].update(aux_ms=ms_d["aux"], aux_plain_ms=plain_ms_d["aux"],
+                      aux_bound_ms=bound_d["aux"]["bound_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

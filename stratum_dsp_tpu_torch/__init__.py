@@ -1,19 +1,21 @@
 """stratum_dsp_tpu_torch: the PyTorch + CUDA port of stratum_dsp_tpu.
 
 Batched BPM + beat-grid + key analysis over a padded ``[B, T]`` track
-batch, on the device the caller names. It takes the JAX package's
-``AnalysisConfig`` (``stratum_dsp_tpu.config`` imports no JAX) and returns
-the same result arrays under the same keys. The four TPU kernels of the main
+batch, on the current CUDA device unless the caller names another
+(``device="cpu"`` for the CPU). It has its own ``AnalysisConfig``
+(``config.py``, field for field the JAX package's; ``from_dict`` carries one
+over) and returns the same result arrays under the same keys. The four TPU kernels of the main
 path are hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` on
 first use; every kernel has a plain PyTorch version that CPU tensors take.
 
-This package imports ``torch`` and never ``jax``. It runs the default
+This package imports ``torch``, never ``jax`` and nothing of the JAX
+package. It runs the default
 ``AnalysisConfig``, multi-resolution escalation included, and the switches
 around it; ``SLICE_CONFIG`` is the default with the escalation off. Other
 configs raise ``NotImplementedError``.
 """
 
-from stratum_dsp_tpu.config import AnalysisConfig
+from .config import AnalysisConfig
 
 from .analysis.pipeline import (
     SLICE_CONFIG,

@@ -20,7 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from stratum_dsp_tpu.config import AnalysisConfig, NormalizationMethod, TemplateSet
+from ..config import AnalysisConfig, NormalizationMethod, TemplateSet
 
 from ..ops.masked import cdiv
 from ..features.beat.grid import (fit_grid_drift, generate_beat_grid, search_downbeat_phase,
@@ -106,16 +106,24 @@ def _tempogram_estimate(curves, nov_mask, n_valid, cfg, frame_rate, top_n):
 
 def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: AnalysisConfig,
                          sample_rate: int, caps: PipelineCaps = PipelineCaps(),
-                         mesh=None) -> Dict[str, torch.Tensor]:
-    """Run the pipeline on ``samples [B, T]`` f32 / ``lengths [B]`` on their
-    device; returns a flat dict of result arrays [B, ...] with the keys,
-    shapes and dtypes of the reference. Tracks that are empty or all silent
-    have ``ok`` False and zeroed outputs."""
+                         mesh=None, device=None) -> Dict[str, torch.Tensor]:
+    """Run the pipeline on ``samples [B, T]`` f32 / ``lengths [B]`` on
+    ``device`` (the current CUDA device when None; see ``analyze_batch``);
+    returns a flat dict of result arrays [B, ...] with the keys, shapes and
+    dtypes of the reference. Tracks that are empty or all silent have ``ok``
+    False and zeroed outputs."""
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device sharding is outside the ported slice")
     check_slice_config(cfg)
+    device = _batch_device(samples, lengths, device)
+    if device.type == "cuda":
+        # f32 matmuls stay f32 (the reference's band sums are f32-exact);
+        # these switches are process-wide in PyTorch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    samples = samples.to(device=device, dtype=torch.float32)
+    lengths = lengths.to(device=device, dtype=torch.int64)
     b, t = samples.shape
-    lengths = lengths.to(torch.int64)
     track_ok = lengths > 0
 
     if cfg.enable_normalization:
@@ -303,27 +311,24 @@ def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base
 
 
 def _batch_device(samples, lengths, device) -> torch.device:
-    """The device the batch runs on: ``device`` if given, else that of the
-    tensor inputs, else the CPU (numpy input). A tensor input that lies on
-    another device raises: the batch never moves on its own."""
-    on = {x.device for x in (samples, lengths) if torch.is_tensor(x)}
-    if device is None:
-        if len(on) > 1:
-            raise ValueError(f"analyze_batch: samples and lengths lie on different devices "
-                             f"({', '.join(sorted(map(str, on)))})")
-        device = on.pop() if on else "cpu"
-    device = torch.device(device)
+    """The device the batch runs on: the current CUDA device unless ``device``
+    names one (``"cpu"`` included). Raises ``RuntimeError`` when that is a
+    CUDA device and none is available, and ``ValueError`` for a tensor input
+    that lies on an accelerator other than ``device``: host inputs (numpy
+    arrays, CPU tensors) are copied to the card, nothing else ever moves."""
+    device = torch.device("cuda" if device is None else device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"analyze_batch runs on a CPU or CUDA device, not {device}")
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("analyze_batch: device is CUDA but no CUDA device is available")
+            raise RuntimeError("analyze_batch: device is CUDA but no CUDA device is available; "
+                               'pass device="cpu" to run on the CPU')
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-    for x in on:
-        if x != device:
-            raise ValueError(f"analyze_batch: an input lies on {x} but device is {device}; "
-                             "move it there first")
+    for x in (samples, lengths):
+        if x.device != device and x.device.type != "cpu":
+            raise ValueError(f"analyze_batch: an input lies on {x.device} but device is "
+                             f"{device}; move it there first")
     return device
 
 
@@ -331,19 +336,14 @@ def analyze_batch(samples, lengths, cfg: AnalysisConfig = AnalysisConfig(),
                   sample_rate: int = 44100,
                   caps: PipelineCaps = PipelineCaps(), device=None) -> Dict[str, torch.Tensor]:
     """User-facing entry: numpy arrays or tensors in, result-array dict out,
-    every stage on ``device``. Without ``device`` the batch runs where its
-    tensors lie (the CPU for numpy input). Raises if a tensor lies on another
-    device than ``device``, or if ``device`` is CUDA and no card is present;
-    work never moves to another device on its own."""
-    device = _batch_device(samples, lengths, device)
-    if device.type == "cuda":
-        # f32 matmuls stay f32 (the reference's band sums are f32-exact);
-        # these switches are process-wide in PyTorch
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    samples = torch.as_tensor(np.asarray(samples, np.float32) if not torch.is_tensor(samples)
-                              else samples, dtype=torch.float32, device=device)
-    lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(lengths) else lengths,
-                              dtype=torch.int64, device=device)
+    every stage on ``device``. Without ``device`` the batch runs on the
+    current CUDA device, and host inputs (numpy arrays, CPU tensors) are
+    copied there; it raises ``RuntimeError`` when no card is present. The CPU
+    is taken only on ``device="cpu"``. A tensor that lies on another
+    accelerator than ``device`` raises ``ValueError``."""
+    if not torch.is_tensor(samples):
+        samples = torch.as_tensor(np.asarray(samples, np.float32))
+    if not torch.is_tensor(lengths):
+        lengths = torch.as_tensor(np.asarray(lengths))
     with torch.no_grad():
-        return analyze_batch_arrays(samples, lengths, cfg, sample_rate, caps)
+        return analyze_batch_arrays(samples, lengths, cfg, sample_rate, caps, device=device)

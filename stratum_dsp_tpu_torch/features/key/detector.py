@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stratum_dsp_tpu.config import AnalysisConfig
+from ...config import AnalysisConfig
 
 from . import scoring
 from .templates import key_templates

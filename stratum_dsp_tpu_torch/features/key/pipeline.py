@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stratum_dsp_tpu.config import AnalysisConfig
+from ...config import AnalysisConfig
 
 from ...ops import masked
 from ...ops.stft import stft_reduce

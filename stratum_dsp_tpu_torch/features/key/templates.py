@@ -9,7 +9,7 @@ import functools
 
 import numpy as np
 
-from stratum_dsp_tpu.config import TemplateSet
+from ...config import TemplateSet
 
 KK_MAJOR = (6.35, 2.23, 3.48, 2.33, 4.38, 4.09, 2.52, 5.19, 2.39, 3.66, 2.29, 2.88)
 KK_MINOR = (6.33, 2.68, 3.52, 5.38, 2.60, 3.53, 2.54, 4.75, 3.98, 2.69, 3.34, 3.17)

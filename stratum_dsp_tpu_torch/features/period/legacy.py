@@ -11,7 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from stratum_dsp_tpu.config import AnalysisConfig
+from ...config import AnalysisConfig
 
 from .tempogram_fft import next_pow2
 

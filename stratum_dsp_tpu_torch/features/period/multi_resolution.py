@@ -21,7 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from stratum_dsp_tpu.config import AnalysisConfig
+from ...config import AnalysisConfig
 
 from ...ops import masked
 from . import novelty as nov

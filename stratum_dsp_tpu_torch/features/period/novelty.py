@@ -25,7 +25,7 @@ from typing import Dict
 
 import torch
 
-from stratum_dsp_tpu.config import AnalysisConfig
+from ...config import AnalysisConfig
 
 from ...ops import masked
 from ...ops.novelty import NoveltyTables, fused_novelty_features, unpack_features

@@ -18,7 +18,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from stratum_dsp_tpu.config import AnalysisConfig
+from ...config import AnalysisConfig
 
 from ...ops import masked
 from . import tempogram_autocorr as tac

@@ -29,13 +29,26 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
 )
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory, and
+# f32 outside the tensor cores. Every kernel's bound is stated against them.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+# For the latency floor of a dependent chain: the card's maximum SM clock, the
+# cycles before a dependent f32 instruction can start, and (approximately)
+# those of a shared-memory load or a warp shuffle whose result the next step
+# waits for.
+H100_SM_CLOCK_HZ = 1.98e9
+DEPENDENT_F32_CYCLES = 4
+DEPENDENT_SMEM_CYCLES = 30
+
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     "stratum_polyphase_stage2": ([_vp, _vp, _vp] + [_int] * 7 + [_vp], _int),
     "stratum_downbeat_mask": ([_vp, _vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_downbeat_max_slots": ([], _int),
-    "stratum_fused_novelty": ([_vp] * 6 + [_int] * 8 + [_vp], _int),
+    "stratum_fused_novelty": ([_vp] * 8 + [_int] * 13 + [_vp], _int),
+    "stratum_fused_novelty_smem": ([_int] * 5, _int),
     "stratum_viterbi_decode": ([_vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_viterbi_max_frames": ([], _int),
 }
@@ -111,3 +124,26 @@ def check(rc: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def chain_floor_ms(steps: int, f32_ops: int, smem_ops: int = 0) -> float:
+    """An estimate, from assumed latencies, of the time a chain of ``steps``
+    dependent steps takes on one thread of an H100, each step waiting for
+    ``f32_ops`` dependent f32 instructions and ``smem_ops`` shared-memory
+    loads or shuffles. No byte or operation bound says anything about such a
+    kernel; this is a yardstick for its design and not a bound, since the
+    cycle counts are approximate and another formulation of the chain may
+    need fewer steps."""
+    cycles = steps * (f32_ops * DEPENDENT_F32_CYCLES + smem_ops * DEPENDENT_SMEM_CYCLES)
+    return 1e3 * cycles / H100_SM_CLOCK_HZ
+
+
+def roofline(n_bytes: int, n_ops: int) -> dict:
+    """The least time an H100 could take to move ``n_bytes`` and do ``n_ops``
+    f32 operations outside the tensor cores: ``bound_ms`` is the larger of
+    the two times and ``bound_by`` names it."""
+    bytes_ms = 1e3 * n_bytes / H100_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / H100_F32_OPS_PER_S
+    return {"bytes": int(n_bytes), "operations": int(n_ops), "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}

@@ -37,6 +37,20 @@ def downbeat_mask_plain(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.T
     return torch.stack(out, dim=-1)
 
 
+def bound_ms(b: int, n: int) -> dict:
+    """The least time an H100 could take for one call, from its shapes alone.
+
+    Bytes: the f32 times, the int32 counts and f32 bar lengths read once, the
+    one-byte mask written once, over 3.35 TB/s; operations: 6 per slot
+    (validity, add, subtract, absolute value, compare, select). Neither says
+    much: the walk is one dependent chain per track, each slot waiting for
+    the last downbeat through 4 f32 instructions (add, subtract, compare,
+    select), and ``chain_floor_ms`` is the time of that chain."""
+    bound = cuda_build.roofline(b * n * 4 + b * 8 + b * n, 6 * b * n)
+    bound["chain_floor_ms"] = cuda_build.chain_floor_ms(n, f32_ops=4)
+    return bound
+
+
 def downbeat_mask(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor):
     """Downbeat mask ``[B, N]`` bool for ``times [B, N]`` f32, ``n_beats [B]``
     int, ``bar [B]`` f32 seconds. CPU tensors take the plain version; CUDA

@@ -22,6 +22,7 @@ CUDA tensor launches ``csrc/fused_novelty.cu`` or raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -32,10 +33,15 @@ from . import cuda_build, masked
 
 EPSILON = 1e-10
 PCOLS = 128  # packed output columns
-FRAME_TILE = 16  # frames per CUDA block (2 halo rows per tile)
-# the kernel's limits (csrc/fused_novelty.cu: kThreads * kMaxBinsPerThread,
-# kMaxBands, kMaxMels)
-KERNEL_MAX_BINS, KERNEL_MAX_BANDS, KERNEL_MAX_MELS = 2048, 4, 128
+FRAME_TILE = 14  # frames per CUDA block: with its 2 halo rows, a row for each of 16 warps
+BLOCK_THREADS = 512  # a warp per row, then a warp per frame
+MEL_TASK_BINS = 24  # the widest piece of a mel filter one lane sums
+# the kernel's limits (csrc/fused_novelty.cu: kMaxBins, kMaxBands, kMaxMels,
+# kMaxMelPacked, kMaxEdges, kMaxMelTasks, kMaxMelRounds) and the shared memory
+# one block of the card may take
+KERNEL_MAX_BINS, KERNEL_MAX_BANDS, KERNEL_MAX_MELS, KERNEL_MAX_MEL_PACKED = 2048, 4, 128, 4096
+KERNEL_MAX_EDGES, KERNEL_MAX_MEL_TASKS, KERNEL_MAX_MEL_ROUNDS = 256, 512, 8
+KERNEL_MAX_SMEM = 232448
 
 
 @dataclasses.dataclass(eq=False)
@@ -94,18 +100,80 @@ class NoveltyTables:
         """(band column, start, end) of every band after the full one."""
         return tuple((i, s, e) for i, (s, e) in enumerate(self.bands) if i > 0)
 
+    @functools.cached_property
+    def bin_band(self) -> np.ndarray:
+        """``[ceil(K / 4) * 4]`` uint8, a byte a bin: the column of the
+        sub-band that holds the bin, 0 where none does (and past K). The
+        kernel reads four bins' bytes as one word. Needs disjoint sub-bands
+        (``check_kernel_input``)."""
+        bands = np.zeros(-(-self.n_bins // 4) * 4, np.uint8)
+        for i, s, e in self.sub_bands:
+            bands[s:e] = i
+        return bands
+
+    @functools.cached_property
+    def edge_windows(self) -> np.ndarray:
+        """``[n_edge, 4]`` int32 (bin, lo, hi, band): the bins of each
+        sub-band whose max-filter window ``[lo, hi]``, clamped to the band,
+        is narrower than the full band's ``[k - sf_k, k + sf_k]`` clamped to
+        ``[0, K)``. For every other bin the two filters are one."""
+        rows = []
+        for i, s, e in self.sub_bands:
+            for k in range(s, e):
+                full = (max(k - self.sf_k, 0), min(k + self.sf_k, self.n_bins - 1))
+                own = (max(k - self.sf_k, s), min(k + self.sf_k, e - 1))
+                if own != full:
+                    rows.append((k, *own, i))
+        return np.asarray(rows, np.int32).reshape(-1, 4)
+
+    @functools.cached_property
+    def mel_packed(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The mel filterbank packed by range for the kernel: ``[nm, 3]``
+        int32 (lo, hi, offset) with ``[lo, hi)`` each filter's nonzero range,
+        and the f32 weights of all ranges end to end, filter m's at
+        ``offset``."""
+        nz = self.mel_w != 0
+        lo = np.where(nz.any(0), nz.argmax(0), 0)
+        hi = np.where(nz.any(0), self.n_bins - nz[::-1].argmax(0), 0)
+        off = np.concatenate([[0], np.cumsum(hi - lo)[:-1]])
+        pack = np.concatenate([self.mel_w[a:b, m] for m, (a, b) in enumerate(zip(lo, hi))]
+                              + [np.zeros(0, np.float32)])
+        return np.stack([lo, hi, off], 1).astype(np.int32), pack.astype(np.float32)
+
+    @functools.cached_property
+    def mel_tasks(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The mel dots as the kernel's lanes take them: ``[n_task, 4]`` int32
+        (lo, hi, offset into the packed weights, output column), a task a
+        lane, and ``[n_rounds + 1]`` int32 round starts. A filter wider than
+        ``MEL_TASK_BINS`` is cut into pieces; piece i of every filter is in
+        round i, so that a round writes each column at most once (round 0
+        sets it, later rounds add to it). Within a round the tasks are
+        sorted by length, so the 32 lanes of a pass have work of one size."""
+        rng, _ = self.mel_packed
+        rounds = []
+        for m, (lo, hi, off) in enumerate(rng.tolist()):
+            for i, start in enumerate(range(lo, max(hi, lo + 1), MEL_TASK_BINS)):
+                end = min(start + MEL_TASK_BINS, hi)
+                while len(rounds) <= i:
+                    rounds.append([])
+                rounds[i].append((start, end, off + start - lo, 4 * self.nb + m))
+        for tasks in rounds:
+            tasks.sort(key=lambda t: t[0] - t[1])
+        starts = np.cumsum([0] + [len(tasks) for tasks in rounds])
+        tasks = np.asarray([t for tasks in rounds for t in tasks], np.int32).reshape(-1, 4)
+        return tasks, starts.astype(np.int32)
+
     def on(self, device) -> Dict[str, torch.Tensor]:
         """The tables as tensors on ``device``, made once per device."""
         key = str(torch.device(device))
         if key not in self._on:
             t = {"sf_mask": self.sf_mask, "ew": self.ew,
-                 "bands": np.asarray(self.bands, np.int32).reshape(-1)}
+                 "bin_band": self.bin_band.view(np.int32),
+                 "edges": self.edge_windows.reshape(-1)}
             if self.mel_w is not None:
-                nz = self.mel_w != 0
-                lo = np.where(nz.any(0), nz.argmax(0), 0)
-                hi = np.where(nz.any(0), self.n_bins - nz[::-1].argmax(0), 0)
-                t.update(mel_w=self.mel_w, mel_wt=np.ascontiguousarray(self.mel_w.T),
-                         mel_rng=np.stack([lo, hi], 1).astype(np.int32).reshape(-1))
+                tasks, rounds = self.mel_tasks
+                t.update(mel_w=self.mel_w, mel_pack=self.mel_packed[1],
+                         mel_tasks=tasks.reshape(-1), mel_rounds=rounds)
             self._on[key] = {n: torch.as_tensor(v, device=device) for n, v in t.items()}
         return self._on[key]
 
@@ -181,6 +249,48 @@ def check_kernel_input(spec: torch.Tensor, prev2: torch.Tensor, tables: NoveltyT
     if any(not 0 <= x <= k for x in bounds) or bounds != sorted(bounds):
         raise ValueError(f"fused_novelty_features kernel takes disjoint ascending sub-bands "
                          f"inside [0, {k}], got {tables.bands[1:]}")
+    if len(tables.edge_windows) > KERNEL_MAX_EDGES:
+        raise ValueError(f"fused_novelty_features kernel takes at most {KERNEL_MAX_EDGES} bins "
+                         f"within sf_k of a sub-band's edge, got {len(tables.edge_windows)}")
+    if use_mel and (tables.mel_packed[1].size > KERNEL_MAX_MEL_PACKED
+                    or len(tables.mel_tasks[0]) > KERNEL_MAX_MEL_TASKS
+                    or len(tables.mel_tasks[1]) - 1 > KERNEL_MAX_MEL_ROUNDS):
+        raise ValueError(f"fused_novelty_features kernel takes mel filters whose nonzero ranges "
+                         f"hold at most {KERNEL_MAX_MEL_PACKED} weights in all and "
+                         f"{KERNEL_MAX_MEL_ROUNDS * MEL_TASK_BINS} each, got "
+                         f"{tables.mel_packed[1].size} in all")
+
+
+def kernel_smem_bytes(k: int, tile: int, n_pack: int, n_edge: int, n_task: int) -> int:
+    """Dynamic shared memory of one block (``layout`` in the source): the
+    tile's rows and two halo rows, each in a 16-byte aligned slot between
+    four zeros on either side; the staged output rows; the packed mel
+    weights; the row maxima; the band bytes; the edge windows; the mel tasks.
+    The launcher sizes the block itself; at ``FRAME_TILE`` the largest tables
+    ``check_kernel_input`` admits stay under ``KERNEL_MAX_SMEM``."""
+    k4 = -(-k // 4) * 4
+    return 4 * ((tile + 2) * (k4 + 8) + tile * PCOLS + -(-n_pack // 4) * 4
+                + -(-(tile + 2) // 4) * 4 + k4 // 4 + 4 * n_edge + 4 * n_task)
+
+
+def bound_ms(b: int, c: int, k: int, nb: int, nm: int, n_pack: int, sf_k: int, *,
+             emit_stride2: bool, emit_onset: bool, use_mel: bool) -> Dict[str, object]:
+    """The least time an H100 could take for one call, from its shapes alone.
+
+    Bytes: ``spec``, ``prev2`` and the packed output, each moved once, over
+    3.35 TB/s. Operations, counted per bin and frame as the function needs
+    them at the least (each elementary function as one operation): clamp and
+    log1p 2; one ``2 sf_k + 1``-wide max filter per row ``2 sf_k`` (it serves
+    both strides); SuperFlux 5 per stride (subtract, clamp, square, and the
+    add into the full band's and a sub-band's sum); energy and HFC 6; the
+    onset flux 6 (row maximum, division, subtract, clamp, square, add); and
+    per frame 2 per packed mel weight; over the 67 TFLOP/s of the f32 SIMT
+    units. The kernel's instruction stream is several times the count: the
+    IEEE ``log1pf`` alone is ~25 instructions."""
+    n_bytes = 4 * (b * c * k + b * 2 * k + b * c * PCOLS)
+    per_bin = 2 + 2 * sf_k + 5 * (2 if emit_stride2 else 1) + 6 + (6 if emit_onset else 0)
+    n_ops = b * c * (k * per_bin + (2 * n_pack if use_mel else 0))
+    return cuda_build.roofline(n_bytes, n_ops)
 
 
 def fused_novelty_features(spec: torch.Tensor, prev2: torch.Tensor, tables: NoveltyTables, *,
@@ -201,12 +311,17 @@ def fused_novelty_features(spec: torch.Tensor, prev2: torch.Tensor, tables: Nove
     spec, prev2 = spec.contiguous(), prev2.contiguous()
     out = torch.empty((b, c, PCOLS), dtype=torch.float32, device=spec.device)
     flags = int(emit_stride2) | 2 * int(emit_onset) | 4 * int(use_mel)
-    mel_w, mel_rng = (t["mel_wt"].data_ptr(), t["mel_rng"].data_ptr()) if use_mel else (None, None)
+    mel = [t[n] for n in ("mel_tasks", "mel_rounds", "mel_pack")] if use_mel else []
+    n_task, n_rounds, n_pack = (mel[0].numel() // 4, mel[1].numel() - 1, mel[2].numel()) \
+        if use_mel else (0, 0, 0)
+    n_edge = t["edges"].numel() // 4
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.stratum_fused_novelty(spec.data_ptr(), prev2.data_ptr(), t["bands"].data_ptr(),
-                                       mel_w, mel_rng, out.data_ptr(), b, c, k, tables.nb,
-                                       tables.nm, tables.sf_k, FRAME_TILE, flags, stream)
+        rc = lib.stratum_fused_novelty(
+            spec.data_ptr(), prev2.data_ptr(), t["bin_band"].data_ptr(), t["edges"].data_ptr(),
+            *([x.data_ptr() for x in mel] or [None] * 3), out.data_ptr(), b, c, k, tables.nb,
+            tables.nm, n_edge, n_task, n_rounds, n_pack, tables.sf_k, FRAME_TILE, BLOCK_THREADS,
+            flags, stream)
     cuda_build.check(rc, "fused_novelty_features")
     fused_novelty_features.launches += 1
     return out

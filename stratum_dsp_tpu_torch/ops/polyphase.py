@@ -27,7 +27,8 @@ import torch
 
 from . import cuda_build
 
-FRAME_TILE = 128  # frames per CUDA block (the R-1 halo rows cost ~R/FRAME_TILE)
+KERNEL_RATIO = 16  # the frame/hop ratio R the CUDA kernel is instantiated for
+FRAME_TILE = 64  # frames per CUDA block, a multiple of R (its R-1 halo rows come from L2)
 
 
 def stage2_tables(r: int, device) -> torch.Tensor:
@@ -88,9 +89,31 @@ def check_kernel_input(bd: torch.Tensor, r: int, ext: int, keep_bins: int) -> No
         raise ValueError("polyphase_stage2 kernel takes a contiguous bf16 [B, EBP, 2*KP] tensor,"
                          f" got {bd.dtype} {tuple(bd.shape)}")
     _, ebp, kp2 = bd.shape
-    if kp2 % 2 or not 0 < keep_bins < kp2 // 2 or ebp < ext + r - 1 or not 1 <= r <= 32:
+    if r != KERNEL_RATIO:
+        raise ValueError(f"polyphase_stage2 kernel is built for R={KERNEL_RATIO}, got R={r}")
+    if kp2 % 4 or not 0 < keep_bins < kp2 // 2 or ext < 1 or ebp < ext + r - 1:
         raise ValueError(f"polyphase_stage2: bad shape {tuple(bd.shape)} for R={r}, "
                          f"ext={ext}, keep_bins={keep_bins}")
+    if bd.data_ptr() % 4:
+        raise ValueError("polyphase_stage2 kernel takes a 4-byte aligned tensor")
+
+
+def bound_ms(b: int, ebp: int, kp: int, r: int, ext: int, keep_bins: int) -> dict:
+    """The least time an H100 could take for one call, from its shapes alone.
+
+    Bytes: the part of the bf16 block DFTs ``[B, EBP, 2 KP]`` that feeds an
+    output, read once (``ext + R - 1`` rows, ``keep + 1`` columns of each of
+    the re and im halves; the spare rows and the padded columns are never
+    needed), and the bf16 magnitudes ``[B, ext, keep]`` written once, over
+    3.35 TB/s. Operations: the twiddle of the same rows and columns (4
+    products, 2 sums, 2 roundings), and per output the two fresh ``R``-term
+    sums (``2 (R - 1)``), the mix (16) and the magnitude (5), over the
+    67 TFLOP/s of the f32 SIMT units."""
+    del ebp, kp  # the bound depends only on what feeds an output
+    fed = (ext + r - 1) * (keep_bins + 1)
+    n_bytes = 2 * b * (2 * fed + ext * keep_bins)
+    n_ops = b * (8 * fed + ext * keep_bins * (2 * (r - 1) + 21))
+    return cuda_build.roofline(n_bytes, n_ops)
 
 
 def polyphase_stage2(bd: torch.Tensor, r: int, ext: int, keep_bins: int) -> torch.Tensor:

@@ -61,6 +61,23 @@ def viterbi_decode_plain(emissions: torch.Tensor) -> torch.Tensor:
     return states.to(torch.int32)
 
 
+def bound_ms(b: int, t: int) -> dict:
+    """The least time an H100 could take for one call, from its shapes alone.
+
+    Bytes: the f32 emissions and the transition table read once, the int32
+    states written once, over 3.35 TB/s; operations: per frame and state 3
+    products, 2 compares and the emission product. Neither says much: the
+    forward pass is a chain of ``T - 1`` dependent steps (product, two
+    compare-selects, product, and a shuffle to the neighbouring states) and
+    the backtrack a chain of ``T - 1`` dependent shared-memory loads;
+    ``chain_floor_ms`` is the time of the two."""
+    bound = cuda_build.roofline(b * t * 4 + NUM_STATES * NUM_STATES * 4 + b * t * 4,
+                                b * t * NUM_STATES * 6)
+    bound["chain_floor_ms"] = (cuda_build.chain_floor_ms(t - 1, f32_ops=4, smem_ops=1)
+                               + cuda_build.chain_floor_ms(t - 1, f32_ops=0, smem_ops=1))
+    return bound
+
+
 def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
     """Decode the states ``[B, T]`` int32 from emissions ``[B, T]`` f32. CPU
     tensors take the plain version; CUDA tensors launch the kernel or raise."""

@@ -16,6 +16,8 @@ the whole default ``AnalysisConfig`` through ``analyze_batch``.
   (the port of ``tests/test_integration.py::test_escalation_subbatch_invariance``).
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from stratum_dsp_tpu_torch.testing import assert_outputs_match
 torch.set_num_threads(2)
 
 CFG = AnalysisConfig()
+PCFG = port.AnalysisConfig.from_dict(dataclasses.asdict(CFG))  # the port's own class
 CAPS = dict(max_onsets=512, max_beats=256, seg_beat_cap=32, max_segments=12)
 PARITY_CASES = [  # the cases of tests/test_multires_parity.py
     ("mid_140", dict(bpm=140.0, hats="offbeat")),
@@ -62,7 +65,7 @@ def jax_multires(parity_batch):
 
 def test_multi_resolution_estimate_matches_jax(parity_batch, jax_multires):
     ref = jax_multires[0]
-    got = pmr.multi_resolution_estimate(*(torch.as_tensor(x) for x in parity_batch), CFG,
+    got = pmr.multi_resolution_estimate(*(torch.as_tensor(x) for x in parity_batch), PCFG,
                                         SAMPLE_RATE)
     got = {k: v.numpy() for k, v in got.items()}
     np.testing.assert_array_equal(got["ok"], ref["ok"])
@@ -107,8 +110,8 @@ def test_default_config_matches_jax():
                    jax_analyze(samples, lengths, CFG, SAMPLE_RATE, JaxCaps(**CAPS)).items()}
         finally:
             jax.clear_caches()
-    got = port.analyze_batch(samples, lengths, sample_rate=SAMPLE_RATE,
-                             caps=port.PipelineCaps(**CAPS))
+    got = port.analyze_batch(samples, lengths, PCFG, SAMPLE_RATE, port.PipelineCaps(**CAPS),
+                             device="cpu")
     assert_outputs_match(ref, got)
     used, trig = got["multi_res_used"].numpy(), got["multi_res_triggered"].numpy()
     assert used.sum() >= 2 and (trig & ~used).sum() >= 1, (trig, used)
@@ -121,10 +124,11 @@ def test_escalation_subbatch_invariance():
     bpms = [75.0, 120.0, 128.0, 172.0]
     samples, lengths = pad_batch([kick_pattern(x, 8.0) for x in bpms])
     caps = port.PipelineCaps(max_onsets=256, max_beats=256, seg_beat_cap=32, max_segments=12)
-    out = port.analyze_batch(samples, lengths, CFG, SAMPLE_RATE, caps)
+    out = port.analyze_batch(samples, lengths, PCFG, SAMPLE_RATE, caps, device="cpu")
     trig = out["multi_res_triggered"].numpy()
     assert trig[0] and trig[3] and not trig[1] and not trig[2], trig
     for i in (0, 1, 3):
-        one = port.analyze_batch(samples[i:i + 1], lengths[i:i + 1], CFG, SAMPLE_RATE, caps)
+        one = port.analyze_batch(samples[i:i + 1], lengths[i:i + 1], PCFG, SAMPLE_RATE, caps,
+                                 device="cpu")
         assert float(one["bpm"][0]) == pytest.approx(float(out["bpm"][i]), abs=1e-4)
         assert bool(one["multi_res_used"][0]) == bool(out["multi_res_used"][i])

@@ -105,6 +105,44 @@ def test_stage2_tables_match_pallas_tables():
     np.testing.assert_array_equal(tab[1][cls], s[:, :kp])
 
 
+@pytest.mark.parametrize("b,ext,keep,kp", [(1, 5, 249, 256), (2, 65, 63, 128), (1, 40, 1, 128),
+                                           (3, 64, 62, 128)],
+                         ids=["ext-below-a-tile", "keep-past-a-warp-edge", "one-bin",
+                              "keep-at-a-warp-edge"])
+def test_plain_stage2_matches_pallas_interpret_ragged(rng, b, ext, keep, kp):
+    """The shapes the CUDA kernel must also take (fewer frames than a frame
+    tile, bins ending at and one past the 62 a warp writes and the 248 a
+    block writes, column 0 alone): the plain version, which the kernel is
+    held to bit for bit on the card, against the Pallas kernel in interpret
+    mode, to one bf16 ulp of each frame's maximum."""
+    r = 16
+    ebp = -(-(ext + r) // r) * r
+    bd = _random_bd(rng, b, ebp, kp)
+    ref = np.asarray(jax_stage2(jnp.asarray(bd).astype(jnp.bfloat16), r, ext, keep,
+                                interpret=True, out_bf16=True).astype(jnp.float32))
+    bd_t = torch.as_tensor(bd).to(torch.bfloat16)
+    polyphase.check_kernel_input(bd_t, r, ext, keep)
+    got = polyphase.polyphase_stage2(bd_t, r, ext, keep).float().numpy()
+    assert got.shape == ref.shape == (b, ext, keep)
+    assert np.all(np.abs(got - ref) <= _bf16_ulp(ref.max(axis=-1, keepdims=True)))
+
+
+def test_stage2_bound_at_the_main_path_shape():
+    """Bytes and operations of one launch at [40, 240, 2048] -> [40, 216, 931]:
+    the 231 rows x 932 columns of each half that feed an output, 34.4 MB,
+    read once (not the 240 x 1024 the tensor holds) and 16.1 MB written once;
+    bytes bound it. The byte and operation counts take the same rows and
+    columns, and spare rows or padded columns do not move the bound."""
+    bound = polyphase.bound_ms(40, 240, 1024, 16, 216, 931)
+    assert bound["bytes"] == 2 * 40 * (231 * 2 * 932 + 216 * 931) == 50_534_400
+    assert bound["operations"] == 40 * (8 * 231 * 932 + 216 * 931 * 51) == 479_129_280
+    assert bound["bound_by"] == "bytes"
+    assert bound["bound_ms"] == pytest.approx(50_534_400 / 3.35e12 * 1e3)
+    assert bound["operations_ms"] == pytest.approx(479_129_280 / 67e12 * 1e3)
+    assert polyphase.bound_ms(40, 272, 2048, 16, 216, 931) == bound
+    assert polyphase.FRAME_TILE % polyphase.KERNEL_RATIO == 0
+
+
 @pytest.mark.parametrize("bad", ["f32", "strided", "ext", "keep", "r"])
 def test_stage2_kernel_input_checks(bad):
     """Input the kernel does not take is refused before any launch."""

@@ -39,6 +39,13 @@ from stratum_dsp_tpu_torch.testing import assert_outputs_match
 torch.set_num_threads(2)
 
 CFG = AnalysisConfig(enable_tempogram_multi_resolution=False)
+
+
+def port_cfg(jax_cfg):
+    """A JAX-side config carried over to the port's own class."""
+    return port.AnalysisConfig.from_dict(dataclasses.asdict(jax_cfg))
+
+
 CAPS = dict(max_onsets=256, max_beats=256, seg_beat_cap=32, max_segments=12)
 NOISE_FLOOR_TRACK = 3
 TIME_KEYS = ("beat_times", "downbeat_times")
@@ -69,7 +76,7 @@ def jax_out():
 def port_out():
     samples, lengths = _fixture_batch()
     out = port.analyze_batch(samples, lengths, port.SLICE_CONFIG, SAMPLE_RATE,
-                             port.PipelineCaps(**CAPS))
+                             port.PipelineCaps(**CAPS), device="cpu")
     return {k: v.numpy() for k, v in out.items()}
 
 
@@ -122,7 +129,8 @@ def test_variant_configs_match_jax(variant):
         finally:
             jax.clear_caches()
     got = {k: v.numpy() for k, v in port.analyze_batch(
-        samples, lengths, cfg, SAMPLE_RATE, port.PipelineCaps(**CAPS)).items()}
+        samples, lengths, port_cfg(cfg), SAMPLE_RATE, port.PipelineCaps(**CAPS),
+        device="cpu").items()}
     assert_outputs_match(ref, got, allow_ts_ties=True)
 
 
@@ -147,7 +155,7 @@ def test_port_passes_integration_assertions(port_out):
 def test_all_silent_track_fails():
     out = port.analyze_batch(np.zeros((1, 3 * SAMPLE_RATE), np.float32),
                              np.asarray([3 * SAMPLE_RATE]), port.SLICE_CONFIG, SAMPLE_RATE,
-                             port.PipelineCaps(**CAPS))
+                             port.PipelineCaps(**CAPS), device="cpu")
     assert not bool(out["ok"][0]) and float(out["bpm"][0]) == 0.0
 
 
@@ -180,8 +188,8 @@ def test_constant_tables_match_jax():
     from stratum_dsp_tpu_torch.ops import stft as pstft
 
     eq = np.testing.assert_array_equal
-    for ts in TemplateSet:
-        eq(ptemplates(ts), jtemplates(ts))
+    for ts in TemplateSet:  # each package gets its own enum's member
+        eq(ptemplates(port.config.TemplateSet(ts.value)), jtemplates(ts))
     eq(pstft.mel_filterbank_matrix(44100, 1025, 40, 30.0, 8000.0),
        jstft.mel_filterbank_matrix(44100, 1025, 40, 30.0, 8000.0))
     for f in (0.0, 30.0, 200.0, 2000.0, 8000.0, 30000.0, float("nan")):
@@ -226,7 +234,8 @@ def test_constant_tables_match_jax():
 def test_configs_outside_the_slice_raise(field, value):
     samples, lengths = np.zeros((1, 4096), np.float32), np.asarray([4096])
     with pytest.raises(NotImplementedError, match=field):
-        port.analyze_batch(samples, lengths, CFG.replace(**{field: value}), SAMPLE_RATE)
+        port.analyze_batch(samples, lengths, port_cfg(CFG.replace(**{field: value})),
+                           SAMPLE_RATE, device="cpu")
 
 
 def test_rms_normalization_and_mesh_raise():
@@ -234,9 +243,10 @@ def test_rms_normalization_and_mesh_raise():
 
     x, n = torch.zeros((1, 4096)), torch.tensor([4096])
     with pytest.raises(NotImplementedError, match="normalization"):
-        port.analyze_batch(x, n, CFG.replace(normalization=NormalizationMethod.RMS))
+        port.analyze_batch(x, n, port_cfg(CFG.replace(normalization=NormalizationMethod.RMS)),
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
-        port.analyze_batch_arrays(x, n, CFG, SAMPLE_RATE, mesh=object())
+        port.analyze_batch_arrays(x, n, port_cfg(CFG), SAMPLE_RATE, mesh=object(), device="cpu")
 
 
 def test_cuda_device_without_a_card_raises():
@@ -246,14 +256,22 @@ def test_cuda_device_without_a_card_raises():
         port.analyze_batch(np.zeros((1, 4096), np.float32), np.asarray([4096]), device="cuda")
 
 
-def test_batch_runs_where_its_tensors_lie():
-    """Without ``device`` the batch takes its tensors' device, never the CPU
-    by default: a tensor on the meta device is refused as such, not copied."""
-    x, n = torch.zeros((1, 4096), device="meta"), torch.tensor([4096], device="meta")
+def test_batch_runs_where_its_tensors_lie(monkeypatch):
+    """Without ``device`` the batch runs on the card, wherever its inputs
+    lie, and never on the CPU by default: with no card it raises for numpy
+    arrays and CPU tensors alike. A tensor on another accelerator than the
+    one named is refused as such, not copied."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, n = torch.zeros((1, 4096)), torch.tensor([4096])
+    for args in ((x, n), (x.numpy(), n.numpy())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.analyze_batch(*args)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.analyze_batch_arrays(x, n, port.SLICE_CONFIG, SAMPLE_RATE)
     with pytest.raises(ValueError, match="not meta"):
-        port.analyze_batch(x, n)
-    with pytest.raises(ValueError, match="different devices"):
-        port.analyze_batch(x, torch.tensor([4096]))
+        port.analyze_batch(x, n, device="meta")
+    with pytest.raises(ValueError, match="lies on meta but device is cpu"):
+        port.analyze_batch(x.to("meta"), n, device="cpu")
 
 
 def test_input_on_another_device_than_device_raises():
