@@ -15,7 +15,12 @@ one line each:
    walk) and C (Viterbi decode, with rows that underflow) exactly, D (fused
    novelty reducer, base and auxiliary variants) within 1e-5 of each output
    group's largest value; A and D also at ragged shapes (short and uneven
-   frame counts, bins at a block's edge, small batches, mel and bands off);
+   frame counts, bins at a block's edge, small batches, mel and bands off).
+   B and C are bound by latency, so each is timed on two inputs (B: beat
+   counts drawn from the whole row, and those of 180 s tracks; C: emissions
+   that die out early, and emissions that keep every frame alive) beside an
+   empty launch of its grid, the floor it can approach; C's backtrack scan is
+   also held to the plain backtrack on random backpointers;
 7. fixture batches through the port on the CPU (``device="cpu"``, plain
    versions) and on the card (the default device, kernels), compared output
    by output
@@ -30,8 +35,14 @@ one line each:
    (median and spread of tracks/s); the first is the one whose kernel
    launches are counted and whose outputs are gated (exact BPM on core
    kicks, family-exact on trap kicks, scales in C, beats and downbeats on
-   every track, the escalation used on the adversarial mix); then one
-   adversarial batch with stage timers.
+   every track, the escalation used on the adversarial mix); then the
+   adversarial batch's cumulative stage times (``analysis.timing.stage_timings``);
+11. the file path: the adversarial mix written as 40 16-bit WAVs into a
+   temporary directory, through ``cli.analyze_batch.main`` (twice: the first
+   run warms the 240 s bucket's shape up) and ``cli.analyze_file.main`` on the
+   card, the JSONL held to the same gates and to ``decode_results`` of the
+   same samples analyzed in memory; decode seconds, analyze seconds and
+   tracks/s from files.
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -41,9 +52,11 @@ result line. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,6 +64,9 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 TIMED_BATCHES = 5  # host-side gaps make single batches spread by ~20%
+# kernels B and C as one thread per track walked them (NVIDIA H100 80GB HBM3,
+# 700 W, on the inputs this script still times first), for the phase text
+EARLIER_MS = {"downbeat_mask": 0.0854, "viterbi_decode": 0.0642}
 
 
 def fail(msg: str) -> None:
@@ -63,52 +79,13 @@ def phase(name: str, msg: str) -> None:
 
 
 def bound_text(bound: dict, ms: float) -> str:
-    """'bound 0.0142 ms by bytes (4.3% of it reached)' and, for a kernel
-    that is one dependent chain, an estimate of the chain's time from assumed
-    instruction latencies (no bound, and not measured)."""
-    text = (f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+    """'bound 0.0142 ms by bytes (4.3% of it reached)'."""
+    return (f"bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
             f"({100.0 * bound['bound_ms'] / ms:.1f}% of it reached)")
-    if "chain_floor_ms" in bound:
-        text += f", dependent chain estimated at {bound['chain_floor_ms']:.4f} ms"
-    return text
-
-
-@contextlib.contextmanager
-def stage_timers():
-    """Time the pipeline's stages, each between two synchronisations, while
-    the block runs; yields {stage: [ms per call]}."""
-    import torch
-    from stratum_dsp_tpu_torch.analysis import pipeline
-    from stratum_dsp_tpu_torch.features.period import novelty
-
-    targets = [(pipeline, "detect_energy_flux_onsets", "energy onsets"),
-               (novelty, "compute_bpm_spectral_features", "BPM STFT + reducer"),
-               (pipeline, "_escalate", "escalation"),
-               (pipeline, "generate_beat_grid", "beat grid"),
-               (pipeline, "detect_key_batch", "key path")]
-    times, originals = {}, []
-
-    def timed(fn, label):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            times.setdefault(label, []).append(1000.0 * (time.perf_counter() - t0))
-            return out
-        return wrapper
-
-    for module, attr, label in targets:
-        originals.append((module, attr, getattr(module, attr)))
-        setattr(module, attr, timed(getattr(module, attr), label))
-    try:
-        yield times
-    finally:
-        for module, attr, fn in originals:
-            setattr(module, attr, fn)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -185,53 +162,76 @@ def main() -> int:
                       f"(B, ext, keep, KP, spare rows): {ragged_a}")
 
     # 4. kernel B at the main path's shape: N = max(max_segments*seg_beat_cap,
-    # max_beats) = 3072 beat slots with the default capacities
+    # max_beats) = 3072 beat slots with the default capacities. Two sets of
+    # beat counts: drawn from 1..N-1 with rows of 0 and N and beats exactly on
+    # the +-10% edges (the input of this phase since the kernel was written,
+    # so its time stands beside the earlier ones), and the main path's own
+    # case, the beats of 180 s tracks at 85-168 BPM
     caps = port.PipelineCaps()
     n = max(caps.max_segments * caps.seg_beat_cap, caps.max_beats)
-    bar = torch.as_tensor(rng.uniform(1.2, 3.0, B_REAL).astype(np.float32), device=dev)
-    step = bar / 4.0
-    times = torch.cumsum(step[:, None] * torch.as_tensor(
-        rng.uniform(0.9, 1.1, (B_REAL, n)).astype(np.float32), device=dev), dim=1)
-    # rows 0-3 land beats exactly on the +-10% edges of one bar
-    for row, sign in ((0, 1.0), (1, -1.0), (2, 1.0), (3, -1.0)):
-        k = torch.arange(n, device=dev, dtype=torch.float32)
-        times[row] = k * (bar[row] * (1.0 + sign * 0.1) / 4.0)
-    n_beats = torch.as_tensor(rng.integers(1, n, B_REAL), device=dev, dtype=torch.int32)
-    n_beats[0], n_beats[1], n_beats[4], n_beats[5] = n, n, 0, n
-    got_b = downbeat_mask(times, n_beats, bar)
-    torch.cuda.synchronize()
-    ref_b = downbeat_mask_plain(times, n_beats, bar)
-    err_b = float((got_b.float() - ref_b.float()).abs().max())
-    if not torch.equal(got_b, ref_b):
-        fail(f"kernel B disagrees with its plain version in "
-             f"{int((got_b != ref_b).sum())} slots")
-    ms_b = cuda_time_ms(lambda: downbeat_mask(times, n_beats, bar), 50)
-    plain_ms_b = cuda_time_ms(lambda: downbeat_mask_plain(times, n_beats, bar), 2)
-    bound_b = downbeats.bound_ms(B_REAL, n)
-    phase("kernel B", f"downbeat_mask [{B_REAL},{n}]: exact ({int(got_b.sum())} downbeats); "
-                      f"kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, "
-                      f"{bound_text(bound_b, ms_b)}")
+    walk = measure.walk_inputs(dev)
+    times, bar = walk["times"], walk["bar"]
+    ms_b, bound_b, plain_ms_b, err_b = {}, {}, None, 0.0
+    for case in ("drawn", "main"):
+        n_beats = walk[f"n_beats_{case}"]
+        got_b = downbeat_mask(times, n_beats, bar)
+        torch.cuda.synchronize()
+        ref_b = downbeat_mask_plain(times, n_beats, bar)
+        err_b = max(err_b, float((got_b.float() - ref_b.float()).abs().max()))
+        if not torch.equal(got_b, ref_b):
+            fail(f"kernel B ({case}) disagrees with its plain version in "
+                 f"{int((got_b != ref_b).sum())} slots")
+        ms_b[case] = cuda_time_ms(lambda: downbeat_mask(times, n_beats, bar), 200)
+        if case == "drawn":
+            plain_ms_b = cuda_time_ms(lambda: downbeat_mask_plain(times, n_beats, bar), 2)
+        bound_b[case] = downbeats.bound_ms(B_REAL, n, n_beats.tolist())
+        phase("kernel B", f"downbeat_mask [{B_REAL},{n}], beat counts {case} "
+                          f"({int(n_beats.min())}..{int(n_beats.max())}): exact "
+                          f"({int(got_b.sum())} downbeats); kernel {ms_b[case]:.4f} ms, "
+                          f"{bound_text(bound_b[case], ms_b[case])}")
+    # the launch alone: an empty kernel of the same grid and shared memory
+    empty_b = measure.empty_launch_ms(B_REAL, downbeats.BLOCK_THREADS,
+                                      n * downbeats.SMEM_BYTES_PER_SLOT)
+    phase("kernel B", f"plain version {plain_ms_b:.4f} ms (drawn); an empty launch of its grid "
+                      f"({B_REAL} blocks x {downbeats.BLOCK_THREADS} threads) {empty_b:.4f} ms; "
+                      f"the kernel of one thread per track took "
+                      f"{EARLIER_MS['downbeat_mask']:.4f} ms (drawn)")
 
-    # 5. kernel C at the main path's shape: B=40, max_beats=1024 beat slots;
-    # uniform rows, a row of 1e-3 that underflows through denormals to 0,
-    # and a row with a zero tail
-    em = torch.as_tensor(rng.uniform(0.01, 1.0, (B_REAL, caps.max_beats)).astype(np.float32),
-                         device=dev)
-    em[0] = 1e-3
-    em[1, 300:] = 0.0
-    em[2, :300], em[2, 300:] = 1e-3, 0.0
-    got_c = viterbi_decode(em)
-    torch.cuda.synchronize()
-    ref_c = viterbi_decode_plain(em)
-    err_c = float((got_c - ref_c).abs().max())
-    if not torch.equal(got_c, ref_c):
-        fail(f"kernel C disagrees with its plain version in {int((got_c != ref_c).sum())} slots")
-    ms_c = cuda_time_ms(lambda: viterbi_decode(em), 50)
-    plain_ms_c = cuda_time_ms(lambda: viterbi_decode_plain(em), 2)
-    bound_c = viterbi.bound_ms(B_REAL, caps.max_beats)
-    phase("kernel C", f"viterbi_decode [{B_REAL},{caps.max_beats}]: exact; "
-                      f"kernel {ms_c:.4f} ms, plain {plain_ms_c:.4f} ms, "
-                      f"{bound_text(bound_c, ms_c)}")
+    # 5. kernel C at the main path's shape: B=40, max_beats=1024 beat slots.
+    # "em": uniform rows, a row of 1e-3 that underflows through denormals to
+    # 0, and rows with a zero tail (this phase's input since the kernel was
+    # written: every row dies out within ~100 frames); "em_steady": rows that
+    # keep all 1024 frames alive
+    ms_c, bound_c, plain_ms_c, err_c = {}, {}, None, 0
+    for case, em in measure.decode_inputs(dev).items():
+        got_c = viterbi_decode(em)
+        torch.cuda.synchronize()
+        ref_c = viterbi_decode_plain(em)
+        err_c = max(err_c, int((got_c - ref_c).abs().max()))
+        if not torch.equal(got_c, ref_c):
+            fail(f"kernel C ({case}) disagrees with its plain version in "
+                 f"{int((got_c != ref_c).sum())} slots")
+        ms_c[case] = cuda_time_ms(lambda: viterbi_decode(em), 200)
+        if case == "em":
+            plain_ms_c = cuda_time_ms(lambda: viterbi_decode_plain(em), 2)
+        frames = viterbi.live_frames(em)
+        bound_c[case] = viterbi.bound_ms(B_REAL, caps.max_beats, frames.tolist())
+        phase("kernel C", f"viterbi_decode [{B_REAL},{caps.max_beats}], {case} (frames to walk "
+                          f"{int(frames.min())}..{int(frames.max())}): exact; kernel "
+                          f"{ms_c[case]:.4f} ms, {bound_text(bound_c[case], ms_c[case])}")
+    # the backtrack's warp scan on backpointer maps that no emissions produce
+    for t_ in (1, 33, caps.max_beats, 3000):
+        bp = torch.as_tensor(rng.integers(0, 5, (7, t_, 5)), device=dev)
+        last = torch.as_tensor(rng.integers(0, 5, 7), device=dev)
+        if not torch.equal(viterbi.backtrack_on_card(bp, last).long(),
+                           viterbi.backtrack_plain(bp, last)):
+            fail(f"kernel C's backtrack scan disagrees with the plain backtrack at T = {t_}")
+    empty_c = measure.empty_launch_ms(B_REAL, viterbi.BLOCK_THREADS,
+                                      caps.max_beats * viterbi.SMEM_BYTES_PER_FRAME)
+    phase("kernel C", f"plain version {plain_ms_c:.4f} ms (em); backtrack scan exact on random "
+                      f"backpointers; an empty launch of its grid ({B_REAL} blocks x "
+                      f"{viterbi.BLOCK_THREADS} threads) {empty_c:.4f} ms; the kernel of one warp "
+                      f"per track, a lane a state, took {EARLIER_MS['viterbi_decode']:.4f} ms (em)")
 
     # 6. kernel D at the main path's shape: B=40, 256-frame chunks of the
     # 2048-point BPM STFT (with the zeroed frames past a track's end); the
@@ -430,22 +430,122 @@ def main() -> int:
             fail(f"{name} real-size gates failed: {gates}; bpm {bpm.tolist()}; "
                  f"keys {res['key_idx'].tolist()}")
 
-    # where the time goes on the adversarial mix: one more batch with each
-    # stage synchronised (the BPM STFT line counts the base pass and, inside
-    # the escalation, the hop-256 pass)
-    with stage_timers() as stages:
-        _, wall, _ = run(mixes[1][2], port.AnalysisConfig())
-    phase("stages, adversarial", f"batch {wall * 1000:.1f} ms; " + "; ".join(
-        f"{k} {[round(t, 1) for t in v]} ms" for k, v in stages.items()))
+    # where the time goes on the adversarial mix: the pipeline stopped at
+    # each stage boundary (a warm-up and two timed runs per prefix, median)
+    adversarial = batches["adversarial"]
+    stages = port.stage_timings(adversarial, lengths, reps=2, device=dev)
+    phase("stages, adversarial", "cumulative ms (and since the boundary before): " + "; ".join(
+        f"{k} {1e3 * stages[k]:.1f} ({1e3 * stages[k + '_delta']:+.1f})"
+        for k in stages if not k.endswith("_delta")))
+
+    # 11. the file path: the adversarial mix as 16-bit WAVs, through both CLIs
+    # on the card. The reference is the same samples (the 16-bit values, so
+    # both sides read equal numbers) analyzed in memory at the shape the CLI
+    # gives them: the batch CLI pads a 180 s track to its 240 s bucket, and a
+    # result depends on the padded length in both packages (the tempogram's
+    # FFT size follows it), while analyze_file analyzes a track at its own
+    # length. Same shapes, same samples: BPM within BPM_TOL, key, counts and
+    # methods exactly
+    from stratum_dsp_tpu_torch.cli import analyze_batch as batch_cli
+    from stratum_dsp_tpu_torch.cli import analyze_file as file_cli
+    from stratum_dsp_tpu_torch.io import decode as audio
+
+    seeds_adv = measure.ADVERSARIAL_BPMS
+    with tempfile.TemporaryDirectory(prefix="stratum_smoke_") as tmp:
+        t0 = time.perf_counter()
+        paths, quantized = measure.write_wavs(adversarial, tmp)
+        write_s = time.perf_counter() - t0
+        bucket = batch_cli.bucket_for(n_samples, testing.SAMPLE_RATE)
+        in_memory = port.decode_results(port.analyze_batch_timed(
+            torch.nn.functional.pad(quantized, (0, bucket - n_samples)), lengths,
+            sample_rate=testing.SAMPLE_RATE, device=dev), testing.SAMPLE_RATE)
+        in_memory_one = port.decode_results(port.analyze_batch_timed(
+            quantized[30:31], lengths[30:31], sample_rate=testing.SAMPLE_RATE, device=dev),
+            testing.SAMPLE_RATE)[0]
+        t0 = time.perf_counter()
+        decoded = audio.decode_batch(paths, target_sr=testing.SAMPLE_RATE)
+        decode_s = time.perf_counter() - t0
+        written = quantized[:2].cpu().numpy()
+        if any(err is not None for _, _, err in decoded) or not all(
+                np.array_equal(x, q) for (x, _, _), q in zip(decoded, written)):
+            fail(f"the {audio.decoder_backend()} decoder does not give the samples that were "
+                 f"written: {[err for _, _, err in decoded if err]}")
+        del decoded
+        jsonl = Path(tmp) / "out.jsonl"
+        walls_files, file_launches = [], None
+        for _ in range(2):  # the first run meets the 240 s bucket's shape cold
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()) as summary:
+                rc = batch_cli.main([*paths, "-o", str(jsonl)])
+            torch.cuda.synchronize()
+            walls_files.append(time.perf_counter() - t0)
+            file_launches = {fn.__name__: fn.launches for fn in port.KERNELS}
+            if rc != 0:
+                fail(f"cli.analyze_batch exited with {rc}: {summary.getvalue()}")
+        records = {r["file"]: r for r in map(json.loads, jsonl.read_text().splitlines())}
+        single = io.StringIO()
+        with contextlib.redirect_stdout(single):
+            rc = file_cli.main([paths[30], "--json"])
+        if rc != 0:
+            fail(f"cli.analyze_file exited with {rc}")
+        single = json.loads(single.getvalue())
+    if Path(tmp).exists():
+        fail(f"the temporary directory {tmp} was not removed")
+
+    def same_result(rec, ref):
+        ref = ref.to_dict()
+        return (abs(rec["bpm"] - ref["bpm"]) <= testing.BPM_TOL
+                and all(rec[k] == ref[k] for k in ("key", "key_numerical", "beat_count",
+                                                   "downbeat_count", "methods_used")))
+
+    recs = [records.get(p, {"error": "no record"}) for p in paths]
+    analyzed = [r for r in recs if "error" not in r]
+    gates = {"every track analyzed": len(analyzed) == len(records) == B_REAL}
+    if gates["every track analyzed"]:
+        bpm = np.asarray([r["bpm"] for r in recs])
+        err = np.abs(bpm - seeds_adv)
+        fam = np.minimum.reduce([err, np.abs(bpm - 2 * seeds_adv), np.abs(bpm - 0.5 * seeds_adv)])
+        core = np.arange(B_REAL) < 28
+        n_trig_mem = sum(bool(r.metadata.tempogram_multi_res_triggered) for r in in_memory)
+        gates.update({
+            "core kicks exact": bool((err[core] <= 2.0).all()),
+            "trap kicks family-exact": bool((fam[~core] <= 2.0).all()),
+            "beats on every track": all(r["beat_count"] > 0 for r in recs),
+            "downbeats on every track": all(r["downbeat_count"] > 0 for r in recs),
+            "escalated as in memory": sum(r["tempogram_multi_res_triggered"] for r in recs)
+            == n_trig_mem > 0 and any(r["tempogram_multi_res_used"] for r in recs),
+            "same results as in memory": all(same_result(r, m) for r, m in zip(recs, in_memory)),
+            "analyze_file as in memory": same_result(single, in_memory_one),
+            "every kernel launched": all(v > 0 for v in file_launches.values()),
+            "schema": all(list(r) == ["file", *port.AnalysisResult().to_dict()] for r in recs)
+            and list(single) == list(port.AnalysisResult().to_dict()),
+        })
+    analyze_s = sum(r.get("processing_time_ms", 0.0) for r in recs) / 1e3
+    phase("files", f"{B_REAL} x {SECONDS_REAL:.0f} s 16-bit WAVs (written in {write_s:.2f} s; "
+                   f"bucket {bucket / testing.SAMPLE_RATE:.0f} s), "
+                   f"{audio.decoder_backend()} decoder: decode {decode_s:.4f} s; "
+                   f"cli.analyze_batch walls {[round(w, 4) for w in walls_files]} s (first cold), "
+                   f"of the second: analyze {analyze_s:.4f} s, "
+                   f"{B_REAL / walls_files[-1]:.2f} tracks/s from files on {card}; launches "
+                   f"{file_launches}; cli.analyze_file: bpm {single.get('bpm')}, key "
+                   f"{single.get('key')}, {single.get('processing_time_ms', 0.0):.0f} ms with "
+                   f"decode; gates {gates}")
+    if not all(gates.values()):
+        fail(f"file-path gates failed: {gates}; records "
+             f"{[(r.get('bpm'), r.get('key'), r.get('beat_count'), r.get('error')) for r in recs]}"
+             f"; in memory {[(m.bpm, m.key.name(), len(m.beat_grid.beats)) for m in in_memory]}")
 
     def entry(name, source, replaces, err, ms, plain_ms, bound):
         """One kernel's line: times measured above, the bound computed from
-        this run's shapes. No single PyTorch call computes any of the four
-        functions, so there is no library time."""
+        this run's shapes and data, launches from the adversarial batch (and
+        from the file path's batch). No single PyTorch call computes any of
+        the four functions, so there is no library time."""
         return {"name": name, "route": "cuda",
                 "source": f"stratum_dsp_tpu_torch/csrc/{source}",
                 "replaces": f"stratum_dsp_tpu/ops/{replaces}",
-                "launches": main_launches[name], "max_abs_err": err, "ms": ms,
+                "launches": main_launches[name], "launches_files": file_launches[name],
+                "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
                 "bound_by": bound["bound_by"], "share_of_bound": bound["bound_ms"] / ms,
                 "library_ms": None, "library_call": None}
@@ -454,14 +554,21 @@ def main() -> int:
         entry("polyphase_stage2", "polyphase_stage2.cu", "polyphase_pallas.py:118",
               err_a, ms_a, plain_ms_a, bound_a),
         entry("downbeat_mask", "downbeat_mask.cu", "downbeats_pallas.py:59",
-              err_b, ms_b, plain_ms_b, bound_b),
+              err_b, ms_b["drawn"], plain_ms_b, bound_b["drawn"]),
         entry("viterbi_decode", "viterbi_decode.cu", "viterbi_pallas.py:108",
-              err_c, ms_c, plain_ms_c, bound_c),
+              err_c, ms_c["em"], plain_ms_c, bound_c["em"]),
         entry("fused_novelty_features", "fused_novelty.cu", "novelty_pallas.py:194",
               err_d, ms_d["base"], plain_ms_d["base"], bound_d["base"]),
     ]
+    # B and C on their second input, and the empty launch of their grids
+    kernels[1].update(main_ms=ms_b["main"], main_bound_ms=bound_b["main"]["bound_ms"],
+                      empty_launch_ms=empty_b)
+    kernels[2].update(steady_ms=ms_c["em_steady"],
+                      steady_bound_ms=bound_c["em_steady"]["bound_ms"],
+                      empty_launch_ms=empty_c)
     kernels[3].update(aux_ms=ms_d["aux"], aux_plain_ms=plain_ms_d["aux"],
                       aux_bound_ms=bound_d["aux"]["bound_ms"])
+    phase("total", f"{time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

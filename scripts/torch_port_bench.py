@@ -6,21 +6,29 @@ comes from here. Run from the repository root on a machine with a card:
 
   python3 scripts/torch_port_bench.py kernels
       build the kernels (with the compiler's register report), hold kernels
-      A (polyphase stage 2) and D (fused novelty reducer, base and auxiliary
-      variants) to their plain versions at the main path's shapes and time
-      them; ``--sweep`` also times a list of frame tiles (and, for D, block
-      sizes) so that the constants in ``ops/polyphase.py`` and
-      ``ops/novelty.py`` can be chosen by measurement.
+      A (polyphase stage 2), B (downbeat walk), C (Viterbi decode) and D
+      (fused novelty reducer, base and auxiliary variants) to their plain
+      versions at the main path's shapes and time them, B and C beside an
+      empty launch of their grids; ``--sweep`` also times a list of frame
+      tiles (and, for D, block sizes) so that the constants in
+      ``ops/polyphase.py`` and ``ops/novelty.py`` can be chosen by
+      measurement.
   python3 scripts/torch_port_bench.py batches
       the default config on 40 tracks x 180 s, clean and adversarial mixes:
       a warm-up and five timed batches each, median and spread of tracks/s.
   python3 scripts/torch_port_bench.py profile
       one adversarial batch under ``torch.profiler``: device time by kernel
       and the card's busy share of the wall.
+  python3 scripts/torch_port_bench.py probe
+      build the kernels with ``-DSTRATUM_PROBE`` (a library of its own) and
+      print, for kernels B and C on each of their inputs, the SM clock cycles
+      between the phase boundaries that thread 0 of each block stamps, for
+      the slowest block and the median block, beside the kernel's time.
   python3 scripts/torch_port_bench.py compare --parent DIR
       ``kernels`` and ``batches`` for two trees on one card in one call, each
       in a process of its own, in the order parent, change, change, parent.
-      DIR is an unpacked copy of the parent commit (``git archive``).
+      DIR is an unpacked copy of the parent commit (``git archive``);
+      ``--only kernels`` leaves the batches out.
 
 ``--tree DIR`` imports the port from another checkout than this one; the
 inputs and the timer are always this checkout's, those ``chip_smoke.py``
@@ -117,6 +125,26 @@ def run_kernels(sweep: bool) -> dict:
             lambda: nov.fused_novelty_features(spec, prev2, tables, **flags), 50)
         result[f"D_{name}_plain_ms"] = cuda_time_ms(
             lambda: nov.fused_novelty_features_plain(spec, prev2, tables, **flags), 10)
+    from stratum_dsp_tpu_torch.ops import downbeats, viterbi
+
+    def exact(name, got, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise SystemExit(f"kernel {name} disagrees with its plain version")
+
+    walk = measure.walk_inputs(dev)
+    for case in ("drawn", "main"):
+        args = (walk["times"], walk[f"n_beats_{case}"], walk["bar"])
+        exact(f"B ({case})", downbeats.downbeat_mask(*args), downbeats.downbeat_mask_plain(*args))
+        result[f"B_{case}_ms"] = cuda_time_ms(lambda: downbeats.downbeat_mask(*args), 200)
+    for case, em in measure.decode_inputs(dev).items():
+        exact(f"C ({case})", viterbi.viterbi_decode(em), viterbi.viterbi_decode_plain(em))
+        result[f"C_{case}_ms"] = cuda_time_ms(lambda: viterbi.viterbi_decode(em), 200)
+    if hasattr(cuda_build.library(), "stratum_empty_launch"):
+        result["B_empty_launch_ms"] = measure.empty_launch_ms(
+            40, downbeats.BLOCK_THREADS, walk["times"].shape[1] * downbeats.SMEM_BYTES_PER_SLOT)
+        result["C_empty_launch_ms"] = measure.empty_launch_ms(
+            40, viterbi.BLOCK_THREADS, em.shape[1] * viterbi.SMEM_BYTES_PER_FRAME)
     if sweep:
         # what each part of kernel D costs: the variants with one part off
         for name, s2, onset, mel in (("no_mel", False, False, False),
@@ -201,10 +229,54 @@ def run_profile() -> dict:
                             for n, t, c in rows[:10]]}
 
 
-def run_compare(parent: Path, timeout: int) -> None:
+def run_probe() -> dict:
+    """Cycles per phase of kernels B and C, from the stamps of a probe build."""
+    import ctypes
+
+    import torch
+    from stratum_dsp_tpu_torch.ops import cuda_build, downbeats, viterbi
+
+    measure = load_measure()
+    cuda_time_ms = measure.cuda_time_ms
+    cuda_build.NVCC_FLAGS = (*cuda_build.NVCC_FLAGS, "-DSTRATUM_PROBE")
+    for name in ("stratum_probe_downbeat", "stratum_probe_viterbi"):
+        cuda_build._SIGNATURES[name] = ([ctypes.c_void_p], ctypes.c_int)
+    lib = cuda_build.library()
+    dev = torch.device("cuda:0")
+
+    def phases(read, names, call):
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        stamps = np.zeros((64, 8), np.int64)
+        cuda_build.check(read(stamps.ctypes.data), "probe")
+        stamps = stamps[:measure.B_REAL, :len(names) + 1]
+        stamps = stamps[stamps[:, -1] > 0]  # a block that returned early stamped no end
+        cycles = np.diff(stamps, axis=1)
+        slowest = int(np.argmax(stamps[:, -1] - stamps[:, 0]))
+        return {"phases": names, "slowest_block_cycles": cycles[slowest].tolist(),
+                "median_block_cycles": np.median(cycles, axis=0).tolist(),
+                "ms": cuda_time_ms(call, 200)}
+
+    result = {}
+    walk = measure.walk_inputs(dev)
+    for case in ("drawn", "main"):
+        args = (walk["times"], walk[f"n_beats_{case}"], walk["bar"])
+        result[f"B_{case}"] = phases(lib.stratum_probe_downbeat,
+                                     ["stage", "successor sets", "walk"],
+                                     lambda: downbeats.downbeat_mask(*args))
+    for case, em in measure.decode_inputs(dev).items():
+        result[f"C_{case}"] = phases(
+            lib.stratum_probe_viterbi,
+            ["stage", "forward", "backpointers", "backtrack", "write out"],
+            lambda: viterbi.viterbi_decode(em))
+    return result
+
+
+def run_compare(parent: Path, timeout: int, modes) -> None:
     for label, tree in (("parent", parent), ("change", REPO), ("change", REPO),
                         ("parent", parent)):
-        for mode in ("kernels", "batches"):
+        for mode in modes:
             proc = subprocess.run([sys.executable, __file__, mode, "--tree", str(tree)],
                                   capture_output=True, text=True, timeout=timeout, check=False)
             last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
@@ -217,10 +289,12 @@ def run_compare(parent: Path, timeout: int) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=["kernels", "batches", "profile", "compare"])
+    parser.add_argument("mode", choices=["kernels", "batches", "profile", "probe", "compare"])
     parser.add_argument("--tree", type=Path, default=REPO, help="checkout to import the port from")
     parser.add_argument("--parent", type=Path, help="unpacked parent commit (compare)")
     parser.add_argument("--sweep", action="store_true", help="kernels: also time other tiles")
+    parser.add_argument("--only", choices=["kernels", "batches"],
+                        help="compare: this mode alone instead of both")
     parser.add_argument("--timeout", type=int, default=600, help="compare: seconds per process")
     args = parser.parse_args()
 
@@ -233,13 +307,14 @@ def main() -> int:
     if args.mode == "compare":
         if args.parent is None:
             parser.error("compare needs --parent")
-        run_compare(args.parent.resolve(), args.timeout)
+        run_compare(args.parent.resolve(), args.timeout,
+                    (args.only,) if args.only else ("kernels", "batches"))
         return 0
     sys.path.insert(0, str(args.tree.resolve()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     result = {"kernels": lambda: run_kernels(args.sweep), "batches": run_batches,
-              "profile": run_profile}[args.mode]()
+              "profile": run_profile, "probe": run_probe}[args.mode]()
     print(json.dumps({"mode": args.mode, "tree": str(args.tree), "card": card(), **result}),
           flush=True)
     return 0

@@ -61,8 +61,6 @@ _SLICE_REQUIREMENTS = (
     ("enable_tempogram_percussive_fallback", False),
     ("enable_bpm_fusion", False),
     ("force_legacy_bpm", False),
-    ("debug_track_id", None),
-    ("emit_tempogram_candidates", False),
     ("enable_key_stft_override", True),
     ("enable_key_harmonic_mask", True),
     ("enable_key_hpss_harmonic", False),
@@ -104,16 +102,32 @@ def _tempogram_estimate(curves, nov_mask, n_valid, cfg, frame_rate, top_n):
     return tg.estimate_bpm_tempogram(variants, cfg, frame_rate, fft_size, top_n)
 
 
+# ``debug_stop_after`` boundaries, in pipeline order; "" runs to the end
+STAGES = ("onsets", "legacy", "multires", "bpm_select", "grid", "")
+
+
 def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: AnalysisConfig,
                          sample_rate: int, caps: PipelineCaps = PipelineCaps(),
-                         mesh=None, device=None) -> Dict[str, torch.Tensor]:
+                         debug_stop_after: str = "", mesh=None,
+                         device=None) -> Dict[str, torch.Tensor]:
     """Run the pipeline on ``samples [B, T]`` f32 / ``lengths [B]`` on
     ``device`` (the current CUDA device when None; see ``analyze_batch``);
     returns a flat dict of result arrays [B, ...] with the keys, shapes and
     dtypes of the reference. Tracks that are empty or all silent have ``ok``
-    False and zeroed outputs."""
+    False and zeroed outputs.
+
+    ``debug_stop_after`` (one of ``STAGES``) returns early at that stage's
+    boundary with the reference's keys there; nothing after it runs, so the
+    time of such a call is the time of the prefix (``timing.stage_timings``).
+
+    With ``cfg.emit_tempogram_candidates`` or ``cfg.debug_track_id`` the dict
+    also holds the chosen estimate's candidate table (``cand_*`` [B, k]), and
+    with ``cfg.debug_track_id`` the ambiguity gate's signals (``dbg_*`` [B])
+    that ``debug.format_debug_dump`` prints."""
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device sharding is outside the ported slice")
+    if debug_stop_after not in STAGES:
+        raise ValueError(f"debug_stop_after must be one of {STAGES}, got {debug_stop_after!r}")
     check_slice_config(cfg)
     device = _batch_device(samples, lengths, device)
     if device.type == "cuda":
@@ -162,7 +176,13 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
         onsets_pos = torch.where(consensus_used[:, None], c_pos, e_pos)
         onsets_valid = torch.where(consensus_used[:, None], c_valid, e_valid)
 
+    if debug_stop_after == "onsets":
+        # positions index with int64 inside the port; the boundary gives the
+        # reference's int32
+        return {"pos": onsets_pos.to(torch.int32), "valid": onsets_valid}
     legacy = legacy_mod.estimate_bpm_legacy(onsets_pos, onsets_valid, t, sample_rate, cfg)
+    if debug_stop_after == "legacy":
+        return dict(legacy, method_agreement=legacy["method_agreement"].to(torch.int32))
 
     base_top_n = max(cfg.tempogram_candidates_top_n, cfg.tempogram_multi_res_top_k, 10)
     base = _tempogram_estimate(curves, nov_mask, n_valid, cfg, frame_rate, base_top_n)
@@ -183,6 +203,7 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     mr_triggered = ambiguous & tempo_ok
 
     chosen_bpm, chosen_conf = base["bpm"], base["confidence"]
+    cand_arrays = {k: base[k] for k in mr.CAND_KEYS}
     mr_used = torch.zeros_like(ambiguous)
     if cfg.enable_tempogram_multi_resolution:
         mres = _escalate(samples, lengths, mr_triggered, cfg, sample_rate, base, feats,
@@ -206,7 +227,13 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
             mr_used = ambiguous & mr_better & mres["ok"]
             chosen_bpm = torch.where(mr_used, mres["bpm"], chosen_bpm)
             chosen_conf = torch.where(mr_used, mres["confidence"], chosen_conf)
+            # the table follows the estimate that was chosen (the escalation's
+            # is top_k wide, like the base's under the default settings)
+            cand_arrays = {k: torch.where(mr_used[:, None], mres[k][:, :v.shape[-1]], v)
+                           for k, v in cand_arrays.items()}
 
+    if debug_stop_after == "multires":
+        return {"bpm": chosen_bpm, "conf": chosen_conf}
     tempo_valid = tempo_ok & (chosen_bpm > 0.0)
     bpm = torch.where(tempo_valid, chosen_bpm, torch.where(legacy["ok"], legacy["bpm"], 0.0))
     bpm_confidence = torch.where(tempo_valid, chosen_conf,
@@ -214,6 +241,8 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     bpm = torch.where(track_ok, bpm, 0.0)
     bpm_confidence = torch.where(track_ok, bpm_confidence, 0.0)
     legacy_used = track_ok & (bpm > 0.0) & ~tempo_valid
+    if debug_stop_after == "bpm_select":
+        return {"bpm": bpm, "conf": bpm_confidence}
 
     # beat grid (lib.rs:913-958)
     onset_seconds = cdiv(onsets_pos.to(torch.float32), sample_rate)
@@ -230,6 +259,8 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
                               interval_scale=iscale, fill=cfg.enable_beat_grid_fill)
     if cfg.enable_downbeat_phase_search:
         grid = search_downbeat_phase(grid, phase_nov, n_valid, frame_rate)
+    if debug_stop_after == "grid":
+        return {"bpm": bpm, "stability": grid.stability}
 
     # key (lib.rs:961-1559)
     key = detect_key_batch(samples, lengths, cfg, sample_rate)
@@ -276,6 +307,19 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
         "warn_low_key_clarity": warn_key_clarity,
     }
     out.update({f"confidence_{k}": v for k, v in conf.items()})
+    if cfg.emit_tempogram_candidates or cfg.debug_track_id is not None:
+        k = min(cfg.tempogram_candidates_top_n, cand_arrays["cand_bpm"].shape[-1])
+        out.update({name: arr[:, :k] for name, arr in cand_arrays.items()})
+    if cfg.debug_track_id is not None:
+        # the ambiguity gate's signals and the estimate before the escalation
+        # (lib.rs:461-487), formatted on the host by analysis/debug.py
+        out.update(
+            dbg_base_bpm=base["bpm"], dbg_base_conf=base["confidence"],
+            dbg_base_agree=base["method_agreement"].to(i32),
+            dbg_s_base=s_base, dbg_s_2x=s_2x, dbg_s_half=s_half,
+            dbg_trap_low=trap_low, dbg_trap_high=trap_high,
+            dbg_family_competes=family_competes, dbg_weak_base=weak_base,
+            dbg_fold_into_trap=fold_into_trap, dbg_ambiguous=ambiguous)
     return out
 
 
@@ -297,7 +341,7 @@ def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base
     precomputed = None
     if cfg.hop_size == 512:
         precomputed = {
-            "est": {k: take(base[k]) for k in ("cand_bpm", "cand_score", "cand_valid")},
+            "est": {k: take(base[k]) for k in mr.CAND_KEYS},
             "feats": {k: take(feats[k]) for k in ("superflux", "superflux2", "energy", "hfc",
                                                   "mel") if k in feats},
             "frame_counts": take(frame_counts),
@@ -306,7 +350,8 @@ def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base
         }
     sub = mr.multi_resolution_estimate(take(samples), take(lengths), cfg, sample_rate,
                                        precomputed)
-    return {k: torch.zeros((esc.shape[0],), dtype=v.dtype, device=v.device).index_copy_(0, idx, v)
+    return {k: torch.zeros((esc.shape[0],) + v.shape[1:], dtype=v.dtype,
+                           device=v.device).index_copy_(0, idx, v)
             for k, v in sub.items()}
 
 
@@ -333,8 +378,8 @@ def _batch_device(samples, lengths, device) -> torch.device:
 
 
 def analyze_batch(samples, lengths, cfg: AnalysisConfig = AnalysisConfig(),
-                  sample_rate: int = 44100,
-                  caps: PipelineCaps = PipelineCaps(), device=None) -> Dict[str, torch.Tensor]:
+                  sample_rate: int = 44100, caps: PipelineCaps = PipelineCaps(), device=None,
+                  debug_stop_after: str = "") -> Dict[str, torch.Tensor]:
     """User-facing entry: numpy arrays or tensors in, result-array dict out,
     every stage on ``device``. Without ``device`` the batch runs on the
     current CUDA device, and host inputs (numpy arrays, CPU tensors) are
@@ -346,4 +391,5 @@ def analyze_batch(samples, lengths, cfg: AnalysisConfig = AnalysisConfig(),
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(np.asarray(lengths))
     with torch.no_grad():
-        return analyze_batch_arrays(samples, lengths, cfg, sample_rate, caps, device=device)
+        return analyze_batch_arrays(samples, lengths, cfg, sample_rate, caps,
+                                    debug_stop_after=debug_stop_after, device=device)

@@ -32,6 +32,8 @@ EPSILON = 1e-6
 DEDUP_TOL = 0.75
 MAX_UNIQUE = 8
 FAMILY_FACTORS = (1.0, 1.5, 2.0 / 3.0, 4.0 / 3.0, 0.75)
+# the candidate arrays of a tempogram estimate, score-ordered [B, top_n]
+CAND_KEYS = ("cand_bpm", "cand_score", "cand_fft", "cand_ac", "cand_valid", "cand_selected")
 # The family search evaluates candidates in [70, 180] BPM only
 # (multi_resolution.rs:773-780): hop-512 periods of 28.7..73.8 frames, so
 # phases are capped at PHASE_CAP and periods below PERIOD_MIN are refused.
@@ -132,7 +134,8 @@ def _prior(bpm, score):
 def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
                               precomputed: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """The multi-resolution pass: bpm / confidence / method_agreement / ok
-    [B] for ``samples [B, T]``.
+    [B] for ``samples [B, T]``, and the hop-512 candidate arrays ``cand_*``
+    [B, top_k] with ``cand_selected`` marked against the pass's own BPM.
 
     ``precomputed`` carries the base hop-512 pass of the same tracks:
     ``est`` (its estimate, score-ordered candidates at least top_k wide),
@@ -152,8 +155,7 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
 
     c256, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 256, aux_k)
     if precomputed is not None:
-        c512 = {k: precomputed["est"][k][:, :top_k]
-                for k in ("cand_bpm", "cand_score", "cand_valid")}
+        c512 = {k: precomputed["est"][k][:, :top_k] for k in CAND_KEYS}
         nov512, nval512 = precomputed["novelty_full"], precomputed["n_valid"]
         feats1024, fc1024 = nov.decimate_features_2x(precomputed["feats"],
                                                      precomputed["frame_counts"])
@@ -290,9 +292,13 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
         0.0)
     _, agree = total_support(best_bpm)
     ok = hyp_ok.any(dim=-1)
-    return {
+    out = {
         "bpm": torch.where(ok, best_bpm, 0.0),
         "confidence": torch.where(ok, confidence, 0.0),
         "method_agreement": torch.where(ok, agree, 0),
         "ok": ok,
     }
+    out.update({k: c512[k] for k in CAND_KEYS if k != "cand_selected"})
+    out["cand_selected"] = out["cand_valid"] & (
+        (out["cand_bpm"] - out["bpm"][:, None]).abs() < DEDUP_TOL)
+    return out

@@ -82,8 +82,9 @@ def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
 def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig,
                            frame_rate: float, fft_size: int, top_n: int) -> Dict[str, torch.Tensor]:
     """Score candidates and select the BPM: bpm/confidence/method_agreement
-    [B] and the score-ordered candidates cand_bpm/cand_score/cand_valid
-    [B, top_n] (the ambiguity gate reads them)."""
+    [B] and the score-ordered candidates cand_bpm/cand_score/cand_fft/
+    cand_ac/cand_valid/cand_selected [B, top_n] (the ambiguity gate and the
+    escalation read them; the candidate diagnostics print them)."""
     full = variants[0]
     assert full.name == "full"
     b = full.fft_power.shape[0]
@@ -177,13 +178,17 @@ def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig
                  + ((ac_primary_bpm > 0.0) & ((ac_primary_bpm - final_bpm).abs() < 2.0)).long())
 
     top = srt[:, :min(top_n, cands.shape[-1])]
+    cand_bpm, cand_valid = torch.gather(cands, 1, top), torch.gather(cvalid, 1, top)
     return {
         "bpm": final_bpm,
         "confidence": confidence,
         "method_agreement": agreement,
-        "cand_bpm": torch.gather(cands, 1, top),
+        "cand_bpm": cand_bpm,
         "cand_score": torch.gather(score, 1, top),
-        "cand_valid": torch.gather(cvalid, 1, top),
+        "cand_fft": torch.gather(fft_norm, 1, top),
+        "cand_ac": torch.gather(ac_norm, 1, top),
+        "cand_valid": cand_valid,
+        "cand_selected": cand_valid & ((cand_bpm - final_bpm[:, None]).abs() < DEDUP_TOL),
     }
 
 

@@ -1,6 +1,7 @@
 """What ``chip_smoke.py`` and ``scripts/torch_port_bench.py`` share: the
-device timer, kernels A and D's inputs at the main path's shapes, and the
-two real-size mixes of tracks.
+device timer, the kernels' inputs at the main path's shapes, the empty launch
+that latency-bound kernels are held against, the two real-size mixes of
+tracks, and a mix written out as WAV files.
 
 The port is imported by its absolute name inside each function, so that a
 script which loads this file on its own (``torch_port_bench.py --tree DIR``)
@@ -40,6 +41,67 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def empty_launch_ms(blocks: int, threads: int, smem: int = 0, reps: int = 200) -> float:
+    """Device time of one launch of an empty kernel of that grid, by the same
+    timer: the measured floor under a kernel that is bound by latency."""
+    from stratum_dsp_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library()
+
+    def launch():
+        cuda_build.check(lib.stratum_empty_launch(
+            blocks, threads, smem, torch.cuda.current_stream().cuda_stream), "empty_launch")
+
+    return cuda_time_ms(launch, reps)
+
+
+def walk_inputs(device, seed: int = 11) -> dict:
+    """Kernel B's inputs at the main path's shape, N = 3072 beat slots for 40
+    tracks: ``times``, ``bar``, and two sets of counts. ``n_beats_drawn`` is
+    drawn from 1..N-1 with rows of 0 and N, and rows 0-3 land beats exactly
+    on the +-10% edges of one bar; ``n_beats_main`` is what the main path
+    gives: the beats of a 180 s track at 85-168 BPM."""
+    import stratum_dsp_tpu_torch as port
+
+    caps = port.PipelineCaps()
+    n = max(caps.max_segments * caps.seg_beat_cap, caps.max_beats)
+    rng = np.random.default_rng(seed)
+    bar = torch.as_tensor(rng.uniform(1.2, 3.0, B_REAL).astype(np.float32), device=device)
+    times = torch.cumsum((bar / 4.0)[:, None] * torch.as_tensor(
+        rng.uniform(0.9, 1.1, (B_REAL, n)).astype(np.float32), device=device), dim=1)
+    k = torch.arange(n, device=device, dtype=torch.float32)
+    for row, sign in ((0, 1.0), (1, -1.0), (2, 1.0), (3, -1.0)):
+        times[row] = k * (bar[row] * (1.0 + sign * 0.1) / 4.0)
+    drawn = torch.as_tensor(rng.integers(1, n, B_REAL), device=device, dtype=torch.int32)
+    drawn[0], drawn[1], drawn[4], drawn[5] = n, n, 0, n
+    bpms = np.round(np.linspace(85.0, 168.0, B_REAL))
+    main = torch.as_tensor(np.floor(SECONDS_REAL * bpms / 60.0), device=device, dtype=torch.int32)
+    return {"times": times, "bar": bar, "n_beats_drawn": drawn, "n_beats_main": main}
+
+
+def decode_inputs(device, seed: int = 12) -> dict:
+    """Kernel C's inputs at the main path's shape, [40, 1024]: ``em`` has
+    uniform(0.01, 1) rows, a row of 1e-3 that underflows through denormals to
+    0, and rows with a zero tail; ``em_aligned`` (rows of 1.0: every beat on
+    an onset, the longest-lived probabilities the HMM's emissions can give)
+    sinks to the smallest denormal after ~530 frames and stays there;
+    ``em_steady`` (rows near 1.21 = 0.85 / 0.7, the inverse of the edge
+    states' normalized self-transition) neither underflows nor overflows. The
+    decode of either walks every frame."""
+    import stratum_dsp_tpu_torch as port
+
+    t = port.PipelineCaps().max_beats
+    rng = np.random.default_rng(seed)
+    em = torch.as_tensor(rng.uniform(0.01, 1.0, (B_REAL, t)).astype(np.float32), device=device)
+    em[0] = 1e-3
+    em[1, 300:] = 0.0
+    em[2, :300], em[2, 300:] = 1e-3, 0.0
+    steady = torch.full((B_REAL, t), 1.21, device=device)
+    steady[1::2] *= torch.as_tensor(rng.uniform(0.97, 1.03, (B_REAL // 2, t)).astype(np.float32),
+                                    device=device)
+    return {"em": em, "em_aligned": torch.ones((B_REAL, t), device=device), "em_steady": steady}
 
 
 def stage2_input(rng: np.random.Generator, b: int, ext: int, kp: int, device,
@@ -87,3 +149,26 @@ def real_size_mixes(device):
 
     lengths = torch.full((B_REAL,), n_samples, dtype=torch.int64, device=device)
     return {"clean": make_batch(CLEAN_BPMS), "adversarial": make_batch(ADVERSARIAL_BPMS)}, lengths
+
+
+def write_wavs(batch: torch.Tensor, directory) -> tuple:
+    """``batch [B, T]`` f32 as 16-bit mono WAVs ``track_00.wav`` ... under
+    ``directory``; returns ``(paths, samples)`` where ``samples [B, T]`` f32,
+    on the batch's device, is what decoding those files gives sample for
+    sample (the 16-bit values over 32768)."""
+    import wave
+    from pathlib import Path
+
+    from stratum_dsp_tpu_torch import testing
+
+    x16 = (batch.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+    host = x16.cpu().numpy()
+    paths = []
+    for i, row in enumerate(host):
+        paths.append(str(Path(directory) / f"track_{i:02d}.wav"))
+        with wave.open(paths[-1], "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(testing.SAMPLE_RATE)
+            w.writeframes(row.astype("<i2").tobytes())
+    return paths, x16.to(torch.float32) / 32768.0

@@ -33,13 +33,6 @@ NVCC_FLAGS = (
 # f32 outside the tensor cores. Every kernel's bound is stated against them.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
-# For the latency floor of a dependent chain: the card's maximum SM clock, the
-# cycles before a dependent f32 instruction can start, and (approximately)
-# those of a shared-memory load or a warp shuffle whose result the next step
-# waits for.
-H100_SM_CLOCK_HZ = 1.98e9
-DEPENDENT_F32_CYCLES = 4
-DEPENDENT_SMEM_CYCLES = 30
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (argtypes, restype)
@@ -51,6 +44,8 @@ _SIGNATURES = {
     "stratum_fused_novelty_smem": ([_int] * 5, _int),
     "stratum_viterbi_decode": ([_vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_viterbi_max_frames": ([], _int),
+    "stratum_viterbi_backtrack": ([_vp, _vp, _vp, _int, _int, _vp], _int),
+    "stratum_empty_launch": ([_int, _int, _int, _vp], _int),
 }
 
 
@@ -124,18 +119,6 @@ def check(rc: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
-def chain_floor_ms(steps: int, f32_ops: int, smem_ops: int = 0) -> float:
-    """An estimate, from assumed latencies, of the time a chain of ``steps``
-    dependent steps takes on one thread of an H100, each step waiting for
-    ``f32_ops`` dependent f32 instructions and ``smem_ops`` shared-memory
-    loads or shuffles. No byte or operation bound says anything about such a
-    kernel; this is a yardstick for its design and not a bound, since the
-    cycle counts are approximate and another formulation of the chain may
-    need fewer steps."""
-    cycles = steps * (f32_ops * DEPENDENT_F32_CYCLES + smem_ops * DEPENDENT_SMEM_CYCLES)
-    return 1e3 * cycles / H100_SM_CLOCK_HZ
 
 
 def roofline(n_bytes: int, n_ops: int) -> dict:

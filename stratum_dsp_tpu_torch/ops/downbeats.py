@@ -18,6 +18,12 @@ import torch
 from . import cuda_build
 
 
+# the kernel's block and its shared memory per beat slot (kThreads and
+# kBytesPerSlot in csrc/downbeat_mask.cu), for timing an empty launch of its grid
+BLOCK_THREADS = 512
+SMEM_BYTES_PER_SLOT = 12
+
+
 def downbeat_mask_plain(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor):
     """Plain PyTorch version: the reference's walk as a loop over slots."""
     n = times.shape[-1]
@@ -37,18 +43,19 @@ def downbeat_mask_plain(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.T
     return torch.stack(out, dim=-1)
 
 
-def bound_ms(b: int, n: int) -> dict:
-    """The least time an H100 could take for one call, from its shapes alone.
+def bound_ms(b: int, n: int, n_beats=None) -> dict:
+    """The least time an H100 could take for one call.
 
     Bytes: the f32 times, the int32 counts and f32 bar lengths read once, the
     one-byte mask written once, over 3.35 TB/s; operations: 6 per slot
-    (validity, add, subtract, absolute value, compare, select). Neither says
-    much: the walk is one dependent chain per track, each slot waiting for
-    the last downbeat through 4 f32 instructions (add, subtract, compare,
-    select), and ``chain_floor_ms`` is the time of that chain."""
-    bound = cuda_build.roofline(b * n * 4 + b * 8 + b * n, 6 * b * n)
-    bound["chain_floor_ms"] = cuda_build.chain_floor_ms(n, f32_ops=4)
-    return bound
+    (validity, add, subtract, absolute value, compare, select). With
+    ``n_beats`` (a sequence of the batch's counts) only the slots below each
+    count are read and tested, which is what that data needs; without it all
+    ``n`` of every row. Neither time says much: the kernel is a dependent
+    chain of one vote per downbeat and per 32 slots, and under it the launch
+    itself, which ``measure.empty_launch_ms`` times."""
+    walked = b * n if n_beats is None else int(sum(min(max(int(k), 0), n) for k in n_beats))
+    return cuda_build.roofline(walked * 4 + b * 8 + b * n, 6 * walked)
 
 
 def downbeat_mask(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor):
@@ -73,14 +80,16 @@ def downbeat_mask(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor)
     times = times.contiguous()
     nb = n_beats.to(torch.int32).contiguous()
     bar = bar.to(torch.float32).contiguous()
-    out = torch.empty((b, n), dtype=torch.uint8, device=times.device)
+    # the kernel writes one byte of 0 or 1 a slot, which is a bool tensor's
+    # storage: no conversion pass after it
+    out = torch.empty((b, n), dtype=torch.bool, device=times.device)
     with torch.cuda.device(times.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.stratum_downbeat_mask(times.data_ptr(), nb.data_ptr(), bar.data_ptr(),
                                        out.data_ptr(), b, n, stream)
     cuda_build.check(rc, "downbeat_mask")
     downbeat_mask.launches += 1
-    return out.bool()
+    return out
 
 
 downbeat_mask.launches = 0

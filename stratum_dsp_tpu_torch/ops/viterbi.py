@@ -23,6 +23,10 @@ import torch
 from . import cuda_build
 
 NUM_STATES = 5
+# the kernel's block and its shared memory per frame (one warp, and
+# kBytesPerFrame in csrc/viterbi_decode.cu), for timing an empty launch of its grid
+BLOCK_THREADS = 32
+SMEM_BYTES_PER_FRAME = 22
 
 
 def transition_matrix() -> np.ndarray:
@@ -38,8 +42,25 @@ def transition_matrix() -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _transitions_on(device: str) -> torch.Tensor:
     """The table on ``device``, copied there once: a host-to-device copy per
-    call would stall the stream."""
-    return torch.as_tensor(transition_matrix(), device=device)
+    call would stall the stream. The kernel's forward pass relies on the
+    table's mirror symmetry (``trans[p][s] == trans[4-p][4-s]`` bit for bit),
+    which is checked here."""
+    table = transition_matrix()
+    if table[::-1, ::-1].tobytes() != table.tobytes():
+        raise AssertionError("the Viterbi transition table is not mirror-symmetric")
+    return torch.as_tensor(table, device=device)
+
+
+def backtrack_plain(backptrs: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """States ``[B, T]`` int64 from backpointers ``[B, T, 5]`` (frame t's map
+    from the state at t to the state at t - 1; frame 0's is not read) and the
+    state ``last [B]`` at frame T - 1: a loop over frames."""
+    b, t = backptrs.shape[:2]
+    states = torch.empty((b, t), dtype=torch.int64, device=backptrs.device)
+    states[:, -1] = last
+    for i in range(t - 1, 0, -1):
+        states[:, i - 1] = torch.gather(backptrs[:, i], 1, states[:, i:i + 1])[:, 0]
+    return states
 
 
 def viterbi_decode_plain(emissions: torch.Tensor) -> torch.Tensor:
@@ -54,28 +75,41 @@ def viterbi_decode_plain(emissions: torch.Tensor) -> torch.Tensor:
         # argmax keeps the first maximum, like the kernel's strict `>`
         backptrs[:, i] = scores.argmax(dim=1)
         v = scores.amax(dim=1) * emissions[:, i:i + 1]
-    states = torch.empty((b, t), dtype=torch.int64, device=emissions.device)
-    states[:, -1] = v.argmax(dim=-1)
-    for i in range(t - 1, 0, -1):
-        states[:, i - 1] = torch.gather(backptrs[:, i], 1, states[:, i:i + 1])[:, 0]
-    return states.to(torch.int32)
+    return backtrack_plain(backptrs, v.argmax(dim=-1)).to(torch.int32)
 
 
-def bound_ms(b: int, t: int) -> dict:
-    """The least time an H100 could take for one call, from its shapes alone.
+def live_frames(emissions: torch.Tensor) -> torch.Tensor:
+    """Per row, the frames a decode of these emissions has to walk ``[B]``:
+    up to and including the first frame at which all five probabilities are 0
+    (from there on every backpointer and every state is 0 whatever the
+    emissions say), and ``T`` where that never happens. A loop over frames,
+    for ``bound_ms``."""
+    b, t = emissions.shape
+    trans = _transitions_on(str(emissions.device))
+    v = torch.full((b, NUM_STATES), 1.0 / NUM_STATES, device=emissions.device) \
+        * emissions[:, :1]
+    frames = torch.full((b,), t, dtype=torch.int64, device=emissions.device)
+    for i in range(t):
+        if i:
+            v = (v[:, :, None] * trans).amax(dim=1) * emissions[:, i:i + 1]
+        frames = torch.where((v == 0).all(dim=1) & (frames == t), i + 1, frames)
+    return frames
+
+
+def bound_ms(b: int, t: int, frames=None) -> dict:
+    """The least time an H100 could take for one call.
 
     Bytes: the f32 emissions and the transition table read once, the int32
     states written once, over 3.35 TB/s; operations: per frame and state 3
-    products, 2 compares and the emission product. Neither says much: the
-    forward pass is a chain of ``T - 1`` dependent steps (product, two
-    compare-selects, product, and a shuffle to the neighbouring states) and
-    the backtrack a chain of ``T - 1`` dependent shared-memory loads;
-    ``chain_floor_ms`` is the time of the two."""
-    bound = cuda_build.roofline(b * t * 4 + NUM_STATES * NUM_STATES * 4 + b * t * 4,
-                                b * t * NUM_STATES * 6)
-    bound["chain_floor_ms"] = (cuda_build.chain_floor_ms(t - 1, f32_ops=4, smem_ops=1)
-                               + cuda_build.chain_floor_ms(t - 1, f32_ops=0, smem_ops=1))
-    return bound
+    products, 2 compares and the emission product. With ``frames`` (a
+    sequence of ``live_frames``) only those frames of each row are read and
+    walked, which is what that data needs; without it all ``t`` of every row.
+    Neither time says much: the forward pass is a chain of dependent steps
+    that no exact reassociation shortens, and under it stands the launch
+    itself, which ``measure.empty_launch_ms`` times."""
+    walked = b * t if frames is None else int(sum(min(max(int(k), 0), t) for k in frames))
+    return cuda_build.roofline(walked * 4 + NUM_STATES * NUM_STATES * 4 + b * t * 4,
+                               walked * NUM_STATES * 6)
 
 
 def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
@@ -106,3 +140,28 @@ def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
 
 
 viterbi_decode.launches = 0
+
+
+def backtrack_on_card(backptrs: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """The kernel's backtrack alone (its warp scan over composed backpointer
+    maps) on given backpointers ``[B, T, 5]`` and final states ``[B]`` on a
+    CUDA device; states ``[B, T]`` int32. For the tests, which hold it to
+    ``backtrack_plain`` on maps that real emissions cannot produce; nothing on
+    the analysis path calls it, and it counts no launch."""
+    if backptrs.device.type != "cuda" or backptrs.dim() != 3 \
+            or backptrs.shape[2] != NUM_STATES:
+        raise ValueError(f"backtrack_on_card takes [B, T, 5] backpointers on a CUDA device, got "
+                         f"{tuple(backptrs.shape)} on {backptrs.device}")
+    b, t = backptrs.shape[:2]
+    if int(backptrs.min()) < 0 or int(backptrs.max()) >= NUM_STATES:
+        raise ValueError("backtrack_on_card: backpointers must lie in 0..4")
+    shifts = 3 * torch.arange(NUM_STATES, device=backptrs.device)
+    packed = (backptrs.to(torch.int32) << shifts).sum(dim=-1).to(torch.int16).contiguous()
+    last = last.to(device=backptrs.device, dtype=torch.int32).contiguous()
+    states = torch.empty((b, t), dtype=torch.int32, device=backptrs.device)
+    with torch.cuda.device(backptrs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = cuda_build.library().stratum_viterbi_backtrack(
+            packed.data_ptr(), last.data_ptr(), states.data_ptr(), b, t, stream)
+    cuda_build.check(rc, "viterbi_backtrack")
+    return states

@@ -44,6 +44,73 @@ def test_port_imports_and_runs_without_jax():
     assert proc.stdout.startswith("bpm ")
 
 
+CLI_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["stratum_dsp_tpu"] = None
+sys.path.insert(0, {repo!r})
+import contextlib, importlib, io, json, pkgutil, wave
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import stratum_dsp_tpu_torch as port
+# every module of the port imports (the CLIs, the decoder, the host runtime)
+names = [m.name for m in pkgutil.walk_packages(port.__path__, "stratum_dsp_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "stratum_dsp_tpu_torch.cli.analyze_batch" in names and len(names) > 40, names
+from stratum_dsp_tpu_torch import testing
+from stratum_dsp_tpu_torch.cli import analyze_batch, analyze_file
+x = testing.kick_patterns([120.0], 6.0)[0].numpy()
+path = {tmp!r} + "/kick.wav"
+with wave.open(path, "wb") as w:
+    w.setnchannels(1); w.setsampwidth(2); w.setframerate(44100)
+    w.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+flags = ["--device", "cpu", "--max-onsets", "256", "--max-beats", "256"]
+sink = io.StringIO()
+with contextlib.redirect_stdout(sink):
+    assert analyze_file.main([path, "--json", *flags]) == 0
+    assert analyze_batch.main([path, path, *flags]) == 0
+one, *two = [json.loads(line) for line in sink.getvalue().strip().splitlines()]
+assert abs(one["bpm"] - 120.0) < 2.0 and one["beat_count"] > 0, one
+assert [r["file"] for r in two] == [path, path] and two[0]["bpm"] == one["bpm"], two
+assert sys.modules["jax"] is None and sys.modules["stratum_dsp_tpu"] is None
+print("bpm", one["bpm"])
+"""
+
+
+def test_clis_import_and_run_without_jax(tmp_path):
+    """Every module of the port imports, and both CLIs run file in, JSON out,
+    where neither JAX nor the JAX package can be imported."""
+    script = CLI_SCRIPT.format(repo=str(REPO), tmp=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("bpm ")
+
+
+def test_cli_modules_run_as_programs(tmp_path):
+    """``python -m stratum_dsp_tpu_torch.cli.analyze_file`` without ``--device``
+    and without a card fails with the pipeline's error; it does not carry on
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    import wave
+
+    path = str(tmp_path / "tone.wav")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(44100)
+        w.writeframes((np.sin(np.arange(44100) * 0.05) * 8000).astype(np.int16).tobytes())
+    for module in ("analyze_file", "analyze_batch"):
+        proc = subprocess.run([sys.executable, "-m", f"stratum_dsp_tpu_torch.cli.{module}", path],
+                              capture_output=True, text=True, timeout=300, cwd=REPO)
+        assert proc.returncode != 0 and proc.stdout.strip() == "", (module, proc.stdout)
+        assert "RuntimeError" in proc.stderr, proc.stderr[-2000:]
+        assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+
+
 FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|stratum_dsp_tpu)(\.|\s|$)")
 
 
@@ -53,7 +120,9 @@ def test_no_jax_import_in_port_sources():
     the port itself)."""
     files = sorted((REPO / "stratum_dsp_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "torch_port_bench.py"]
-    assert len(files) > 20
+    assert len(files) > 40
+    assert {"analyze_file.py", "analyze_batch.py", "decode.py", "timing.py", "result.py"} <= {
+        f.name for f in files}
     for path in files:
         for line in path.read_text().splitlines():
             assert not FORBIDDEN_IMPORT.match(line), (path, line)

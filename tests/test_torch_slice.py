@@ -232,10 +232,17 @@ def test_constant_tables_match_jax():
     ("debug_track_id", 0),
 ])
 def test_configs_outside_the_slice_raise(field, value):
+    """A setting outside the port raises, naming it. The two diagnostics
+    settings are inside the port now: they run, and emit their outputs."""
     samples, lengths = np.zeros((1, 4096), np.float32), np.asarray([4096])
+    cfg = port_cfg(CFG.replace(**{field: value}))
+    if field in ("emit_tempogram_candidates", "debug_track_id"):
+        out = port.analyze_batch(samples, lengths, cfg, SAMPLE_RATE, device="cpu")
+        assert out["cand_bpm"].shape == (1, cfg.tempogram_candidates_top_n)
+        assert ("dbg_ambiguous" in out) == (field == "debug_track_id")
+        return
     with pytest.raises(NotImplementedError, match=field):
-        port.analyze_batch(samples, lengths, port_cfg(CFG.replace(**{field: value})),
-                           SAMPLE_RATE, device="cpu")
+        port.analyze_batch(samples, lengths, cfg, SAMPLE_RATE, device="cpu")
 
 
 def test_rms_normalization_and_mesh_raise():
