@@ -31,7 +31,7 @@ one line each:
    ``SLICE_CONFIG``: one counted and gated batch after a warm-up;
 9-10. the same size under the default ``AnalysisConfig``, for the clean mix
    (32 kicks + 8 C-major scales) and the adversarial mix (28 core kicks, 12
-   in the escalation's trap zones): a warm-up, then five timed batches
+   in the escalation's trap zones): a warm-up, then three timed batches
    (median and spread of tracks/s); the first is the one whose kernel
    launches are counted and whose outputs are gated (exact BPM on core
    kicks, family-exact on trap kicks, scales in C, beats and downbeats on
@@ -42,7 +42,24 @@ one line each:
    run warms the 240 s bucket's shape up) and ``cli.analyze_file.main`` on the
    card, the JSONL held to the same gates and to ``decode_results`` of the
    same samples analyzed in memory; decode seconds, analyze seconds and
-   tracks/s from files.
+   tracks/s from files; then one opt-in flag (``--enable-key-ensemble true``)
+   through ``cli.analyze_file``, held to the same track analyzed in memory.
+
+Between them, the opt-in paths:
+
+* kernel A at the log-frequency shape (every bin kept: ``keep = 4097``,
+  ``KP = 4224``) at B = 40 and at ragged batches, bit for bit, and kernel D's
+  auxiliary variant over a whole 180 s track ``[40, 15500, 1025]`` in one
+  launch, within 1e-5, held to its plain version a slab of frames at a time
+  (after phases 3 and 6);
+* three opt-in configs at the real size on the adversarial mix
+  (``measure.OPT_IN_CONFIGS``: HPSS onsets + percussive fallback + LOUDNESS
+  normalization; tuning compensation + exact HPCP peaks; log-frequency
+  chroma), each a warm-up and timed batches held to the default gates and to
+  the launch counts its config implies, with tracks/s, peak device memory and
+  stage times (after phase 10);
+* a fixture batch on the CPU and on the card under configs that together
+  switch on every opt-in branch (before phase 11).
 
 Then one JSON line with the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -63,7 +80,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-TIMED_BATCHES = 5  # host-side gaps make single batches spread by ~20%
+TIMED_BATCHES = 3  # host-side gaps make single batches spread by ~20%
 # kernels B and C as one thread per track walked them (NVIDIA H100 80GB HBM3,
 # 700 W, on the inputs this script still times first), for the phase text
 EARLIER_MS = {"downbeat_mask": 0.0854, "viterbi_decode": 0.0642}
@@ -160,6 +177,36 @@ def main() -> int:
                  f"ext {ext_}, keep {keep_}")
     phase("kernel A", f"bit-equal at {len(ragged_a)} ragged shapes "
                       f"(B, ext, keep, KP, spare rows): {ragged_a}")
+
+    # kernel A under enable_key_log_frequency: every bin of the 8192-point
+    # STFT is kept, so the chunk is [40, 240, 8448] and keep = 4097
+    r_w, ext_w, keep_w, kp_w = measure.STAGE2_WIDE_SHAPE
+    bd_w = measure.stage2_input(rng, B_REAL, ext_w, kp_w, dev)
+    got = polyphase_stage2(bd_w, r_w, ext_w, keep_w)
+    torch.cuda.synchronize()
+    ref = polyphase_stage2_plain(bd_w, r_w, ext_w, keep_w)
+    err_a = max(err_a, float((got.float() - ref.float()).abs().max()))
+    if not torch.equal(got, ref):
+        fail("kernel A is not bit-equal to its plain version at the log-frequency shape "
+             f"[{B_REAL},{bd_w.shape[1]},{2 * kp_w}], keep {keep_w}")
+    del got, ref
+    ms_a_wide = cuda_time_ms(lambda: polyphase_stage2(bd_w, r_w, ext_w, keep_w), 20)
+    plain_ms_a_wide = cuda_time_ms(lambda: polyphase_stage2_plain(bd_w, r_w, ext_w, keep_w), 3)
+    bound_a_wide = polyphase.bound_ms(B_REAL, bd_w.shape[1], kp_w, r_w, ext_w, keep_w)
+    ragged_a_wide = ((3, 216, keep_w, kp_w, 0), (7, 100, keep_w, kp_w, 16),
+                     (1, 536, keep_w, kp_w, 0))
+    for b_, ext_, keep_, kp_, spare in ragged_a_wide:
+        bd_ = measure.stage2_input(rng, b_, ext_, kp_, dev, spare)
+        got = polyphase_stage2(bd_, r, ext_, keep_)
+        torch.cuda.synchronize()
+        if not torch.equal(got, polyphase_stage2_plain(bd_, r, ext_, keep_)):
+            fail(f"kernel A is not bit-equal to its plain version at [{b_},{bd_.shape[1]},"
+                 f"{2 * kp_}], ext {ext_}, keep {keep_}")
+    del bd_w, bd_, got
+    phase("kernel A, wide", f"polyphase_stage2 [{B_REAL},240,{2 * kp_w}] bf16 -> [{B_REAL},"
+                            f"{ext_w},{keep_w}] (log-frequency: every bin kept): bit-equal, also "
+                            f"at B = 3, 7, 1 {ragged_a_wide}; kernel {ms_a_wide:.4f} ms, plain "
+                            f"{plain_ms_a_wide:.4f} ms, {bound_text(bound_a_wide, ms_a_wide)}")
 
     # 4. kernel B at the main path's shape: N = max(max_segments*seg_beat_cap,
     # max_beats) = 3072 beat slots with the default capacities. Two sets of
@@ -315,6 +362,48 @@ def main() -> int:
     phase("kernel D", f"within 1e-5 per group and deterministic at {len(ragged_d)} ragged "
                       f"shapes (tables, B, C, stride 2, onset): {ragged_d}")
 
+    # kernel D over a whole track, as the percussive fallback launches it: the
+    # auxiliary variant on [40, F, 1025] with a zero carry, one launch. The
+    # plain version takes it a slab of frames at a time (its intermediates
+    # are several times the 2.5 GB input), the two frames before a slab as
+    # its carry
+    spec_t, prev_t, _ = measure.whole_track_spectrogram(dev)
+    aux = measure.D_VARIANTS["aux"]
+    frames_t = spec_t.shape[1]
+    n_before = fused_novelty_features.launches
+    got_t = fused_novelty_features(spec_t, prev_t, tables, **aux)
+    torch.cuda.synchronize()
+    if fused_novelty_features.launches != n_before + 1:
+        fail("kernel D took more than one launch for a whole track")
+    unpack_t = lambda x: unpack_features(x, tables.nb, tables.nm, **aux)  # noqa: E731
+    ref_t = torch.empty_like(got_t)
+    slab = 1024
+    t0 = time.perf_counter()
+    for f0 in range(0, frames_t, slab):
+        carry = prev_t if f0 == 0 else spec_t[:, f0 - 2:f0]
+        ref_t[:, f0:f0 + slab] = fused_novelty_features_plain(spec_t[:, f0:f0 + slab], carry,
+                                                              tables, **aux)
+    torch.cuda.synchronize()
+    plain_ms_d_track = 1e3 * (time.perf_counter() - t0)
+    rel_t = {k: float((g - unpack_t(ref_t)[k]).abs().max()
+                      / unpack_t(ref_t)[k].abs().max().clamp_min(1e-12))
+             for k, g in unpack_t(got_t).items()}
+    err_d = max(err_d, float((got_t - ref_t).abs().max()))
+    if not max(rel_t.values()) < 1e-5:
+        fail(f"kernel D over a whole track is off its plain version: relative errors {rel_t}")
+    del got_t, ref_t
+    ms_d_track = cuda_time_ms(lambda: fused_novelty_features(spec_t, prev_t, tables, **aux), 5)
+    bound_d_track = novelty_ops.bound_ms(B_REAL, frames_t, tables.n_bins, tables.nb, tables.nm,
+                                         tables.mel_packed[1].size, tables.sf_k, **aux)
+    del spec_t, prev_t
+    torch.cuda.empty_cache()
+    phase("kernel D, whole track",
+          f"fused_novelty_features aux [{B_REAL},{frames_t},{tables.n_bins}] in one launch "
+          f"(grid {-(-frames_t // novelty_ops.FRAME_TILE)} x {B_REAL}): largest relative error "
+          f"per group {max(rel_t.values()):.3g} against the plain version taken {slab} frames at "
+          f"a time; kernel {ms_d_track:.4f} ms, plain {plain_ms_d_track:.1f} ms (host clock, "
+          f"{-(-frames_t // slab)} slabs), {bound_text(bound_d_track, ms_d_track)}")
+
     # 7. fixture batches, CPU (plain versions) vs card (kernels): the slice
     # batch under SLICE_CONFIG, and under the default config a batch that
     # takes every branch of the escalation
@@ -363,15 +452,18 @@ def main() -> int:
     def n_chunks(hop):  # BPM STFT chunks of 256 frames in one track
         return -(-((n_samples - 2048) // hop + 1) // 256)
 
-    def want_launches(escalated: bool, cfg_multires: bool = True):
-        """Launches of one batch: the key STFT's 81 chunks, one downbeat walk,
-        one decode, a reducer launch per BPM chunk (and per hop-256 chunk
-        when a track escalates)."""
-        d = n_chunks(512) + (n_chunks(256) if escalated and cfg_multires else 0)
-        return {"polyphase_stage2": 81, "downbeat_mask": 1, "viterbi_decode": 1,
+    def want_launches(escalated: bool, cfg_multires: bool = True, key_passes: int = 1,
+                      whole_track_d: int = 0):
+        """Launches of one batch: the key STFT's 81 chunks a pass (tuning
+        compensation and the HPSS harmonic mask each add a pass), one downbeat
+        walk, one decode, a reducer launch per BPM chunk (and per hop-256
+        chunk when a track escalates), and one over the whole percussive
+        spectrogram where the percussive fallback is on."""
+        d = n_chunks(512) + (n_chunks(256) if escalated and cfg_multires else 0) + whole_track_d
+        return {"polyphase_stage2": 81 * key_passes, "downbeat_mask": 1, "viterbi_decode": 1,
                 "fused_novelty_features": d}
 
-    def gates_for(res, seeds, core, launches):
+    def gates_for(res, seeds, core, launches, **changes):
         res = {k: v.cpu().numpy() for k, v in res.items()}
         n = len(seeds)
         bpm = res["bpm"][:n]
@@ -384,7 +476,8 @@ def main() -> int:
             "scales in C": bool((res["key_idx"][n:] == 0).all()),
             "beats on every track": bool(res["beat_valid"].any(axis=1).all()),
             "downbeats on every track": bool(res["downbeat_valid"].any(axis=1).all()),
-            "launches": launches == want_launches(bool(res["multi_res_triggered"].any())),
+            "launches": launches == want_launches(bool(res["multi_res_triggered"].any()),
+                                                  **changes),
         }
         return gates, res, bpm
 
@@ -404,7 +497,7 @@ def main() -> int:
     if not all(gates.values()):
         fail(f"slice real-size gates failed: {gates}")
 
-    # 9-10. the default config on both mixes: a warm-up, then five timed
+    # 9-10. the default config on both mixes: a warm-up, then three timed
     # batches; the first is the one whose launches are counted and gated
     mixes = (("clean", seeds, clean, np.ones(32, bool)),
              ("adversarial", measure.ADVERSARIAL_BPMS, batches["adversarial"],
@@ -437,6 +530,97 @@ def main() -> int:
     phase("stages, adversarial", "cumulative ms (and since the boundary before): " + "; ".join(
         f"{k} {1e3 * stages[k]:.1f} ({1e3 * stages[k + '_delta']:+.1f})"
         for k in stages if not k.endswith("_delta")))
+
+    # the opt-in configs at the real size, on the adversarial mix: a warm-up
+    # and timed batches, the default gates, the launch counts the config
+    # implies, peak device memory and stage times. The HPSS config sorts
+    # 267e9 window elements a batch (ten iterations, two axes, a 21-wide
+    # window over 40 x 15500 x 1025 cells), so it gets one timed batch and the
+    # times of its own three stages instead of the six prefixes
+    opt_in = {}
+    core = np.arange(40) < 28
+    for name, spec_cfg in measure.OPT_IN_CONFIGS.items():
+        cfg_o = measure.opt_in_config(name)
+        n_timed = 1 if name == "hpss" else 2
+        run_o = measure.timed_batches(adversarial, lengths, cfg_o, dev, n_timed)
+        gates, res, bpm = gates_for(run_o["out"], measure.ADVERSARIAL_BPMS, core,
+                                    run_o["launches"], key_passes=spec_cfg["key_passes"],
+                                    whole_track_d=spec_cfg["whole_track_d"])
+        if name == "hpss":
+            gates["percussive fallback triggered"] = bool(res["percussive_triggered"].any())
+            stages_o = measure.hpss_stage_times(adversarial, lengths, cfg_o, dev)
+            stage_text = "; ".join(f"{k[:-2]} {1e3 * v:.1f}" for k, v in stages_o.items())
+        else:
+            stages_o = port.stage_timings(adversarial, lengths, cfg_o, reps=1, device=dev)
+            stage_text = "; ".join(
+                f"{k} {1e3 * stages_o[k]:.1f} ({1e3 * stages_o[k + '_delta']:+.1f})"
+                for k in stages_o if not k.endswith("_delta"))
+        rate = B_REAL / float(np.median(run_o["walls_s"]))
+        opt_in[name] = {"tracks_per_s": rate, "peak_memory_gb": run_o["peak_memory_gb"],
+                        "launches": run_o["launches"]}
+        phase(f"opt-in real size, {name}",
+              f"{spec_cfg['overrides']}: {B_REAL} x {SECONDS_REAL:.0f} s, adversarial mix, walls "
+              f"{[round(w, 4) for w in run_o['walls_s']]} s; {rate:.2f} tracks/s on {card}; peak "
+              f"device memory {run_o['peak_memory_gb']:.2f} GB; launches {run_o['launches']}; "
+              f"percussive triggered {int(res['percussive_triggered'].sum())}, used "
+              f"{int(res['percussive_used'].sum())}; stage ms: {stage_text}; gates {gates}")
+        if not all(gates.values()):
+            fail(f"opt-in '{name}' real-size gates failed: {gates}; bpm {bpm.tolist()}; "
+                 f"keys {res['key_idx'].tolist()}")
+        del run_o, res
+        torch.cuda.empty_cache()
+
+    # the opt-in paths, CPU against card, on kicks at 75 / 120 / 172 BPM and
+    # the C-major scale (8 s each): configs that together switch on every
+    # branch the default config leaves off. The escalation is off except where
+    # the config is about it. (After the timed batches: the CPU side's HPSS
+    # keeps the host's cores busy for a while)
+    kicks = testing.kick_patterns([75.0, 120.0, 172.0], 8.0)
+    samples_v, lengths_v = testing.pad_batch([*kicks, testing.c_major_scale().repeat(2)])
+    variants = {
+        "hpss onsets + percussive fallback + fusion + LOUDNESS": dict(
+            enable_hpss_onsets=True, enable_tempogram_percussive_fallback=True,
+            enable_bpm_fusion=True, normalization=port.NormalizationMethod.LOUDNESS),
+        "forced legacy + RMS": dict(force_legacy_bpm=True,
+                                    normalization=port.NormalizationMethod.RMS),
+        "fractional beat contrast": dict(beat_contrast_fractional=True,
+                                         enable_tempogram_multi_resolution=True),
+        "log-frequency": dict(enable_key_log_frequency=True, enable_key_hpcp=False),
+        "tuning + bass blend + whitening + exact peaks": dict(
+            enable_key_tuning_compensation=True, enable_key_hpcp_bass_blend=True,
+            enable_key_hpcp_whitening=True, key_hpcp_approx_peaks=False),
+        "hpss harmonic mask": dict(enable_key_hpss_harmonic=True, enable_key_harmonic_mask=False),
+        "ensemble": dict(enable_key_ensemble=True),
+        "median": dict(enable_key_median=True, enable_key_segment_voting=False,
+                       key_median_segment_length_frames=120, key_median_segment_hop_frames=30),
+        "multi-scale + mode heuristic + edge trim": dict(
+            enable_key_multi_scale=True, key_multi_scale_lengths=(60, 120),
+            enable_key_mode_heuristic=True, enable_key_edge_trim=True),
+        "beat-synchronous + plain chroma + key STFT 2048": dict(
+            enable_key_beat_synchronous=True, enable_key_stft_override=False),
+    }
+    agreed = []
+    for name, overrides in variants.items():
+        cfg_v = port.SLICE_CONFIG.replace(**overrides)
+        out_cpu = port.analyze_batch(samples_v, lengths_v, cfg_v, device="cpu")
+        port.reset_launch_counts()
+        out_gpu = port.analyze_batch(samples_v, lengths_v, cfg_v)
+        torch.cuda.synchronize()
+        try:
+            worst = testing.assert_outputs_match(out_cpu, out_gpu)
+        except AssertionError as exc:
+            fail(f"variant '{name}' differs between the CPU and the card: {exc}")
+        if not bool(out_gpu["ok"].all()) or fused_novelty_features.launches == 0:
+            fail(f"variant '{name}': ok {out_gpu['ok'].tolist()}, kernel D launched "
+                 f"{fused_novelty_features.launches} times")
+        if "percussive" in name and not bool(out_gpu["percussive_triggered"].any()):
+            fail("the percussive fallback was triggered on no fixture track")
+        if "legacy" in name and not bool(out_gpu["legacy_used"][:3].all()):
+            fail(f"forced legacy: legacy_used {out_gpu['legacy_used'].tolist()}")
+        agreed.append(f"{name} ({worst[1]:.2g} in {worst[0]})")
+    phase("variants cpu/gpu", f"{len(out_cpu)} outputs agree on kicks at 75/120/172 BPM and the "
+                              f"C-major scale under {len(variants)} opt-in configs (largest float "
+                              f"difference): " + "; ".join(agreed))
 
     # 11. the file path: the adversarial mix as 16-bit WAVs, through both CLIs
     # on the card. The reference is the same samples (the 16-bit values, so
@@ -490,6 +674,17 @@ def main() -> int:
         if rc != 0:
             fail(f"cli.analyze_file exited with {rc}")
         single = json.loads(single.getvalue())
+        # one opt-in flag through the CLI, against the same track in memory
+        ensemble = io.StringIO()
+        with contextlib.redirect_stdout(ensemble):
+            rc = file_cli.main([paths[30], "--json", "--enable-key-ensemble", "true"])
+        if rc != 0:
+            fail(f"cli.analyze_file --enable-key-ensemble true exited with {rc}")
+        ensemble = json.loads(ensemble.getvalue())
+        in_memory_ensemble = port.decode_results(port.analyze_batch_timed(
+            quantized[30:31], lengths[30:31],
+            port.AnalysisConfig(enable_key_ensemble=True), testing.SAMPLE_RATE, device=dev),
+            testing.SAMPLE_RATE)[0]
     if Path(tmp).exists():
         fail(f"the temporary directory {tmp} was not removed")
 
@@ -517,6 +712,8 @@ def main() -> int:
             == n_trig_mem > 0 and any(r["tempogram_multi_res_used"] for r in recs),
             "same results as in memory": all(same_result(r, m) for r, m in zip(recs, in_memory)),
             "analyze_file as in memory": same_result(single, in_memory_one),
+            "analyze_file --enable-key-ensemble as in memory":
+                same_result(ensemble, in_memory_ensemble),
             "every kernel launched": all(v > 0 for v in file_launches.values()),
             "schema": all(list(r) == ["file", *port.AnalysisResult().to_dict()] for r in recs)
             and list(single) == list(port.AnalysisResult().to_dict()),
@@ -530,7 +727,8 @@ def main() -> int:
                    f"{B_REAL / walls_files[-1]:.2f} tracks/s from files on {card}; launches "
                    f"{file_launches}; cli.analyze_file: bpm {single.get('bpm')}, key "
                    f"{single.get('key')}, {single.get('processing_time_ms', 0.0):.0f} ms with "
-                   f"decode; gates {gates}")
+                   f"decode; with --enable-key-ensemble true: key {ensemble.get('key')}; "
+                   f"gates {gates}")
     if not all(gates.values()):
         fail(f"file-path gates failed: {gates}; records "
              f"{[(r.get('bpm'), r.get('key'), r.get('beat_count'), r.get('error')) for r in recs]}"
@@ -568,6 +766,14 @@ def main() -> int:
                       empty_launch_ms=empty_c)
     kernels[3].update(aux_ms=ms_d["aux"], aux_plain_ms=plain_ms_d["aux"],
                       aux_bound_ms=bound_d["aux"]["bound_ms"])
+    # the opt-in shapes: A with every bin kept, D over a whole track, and the
+    # launches of each opt-in config's real-size batch
+    kernels[0].update(wide_ms=ms_a_wide, wide_plain_ms=plain_ms_a_wide,
+                      wide_bound_ms=bound_a_wide["bound_ms"])
+    kernels[3].update(whole_track_ms=ms_d_track, whole_track_plain_ms=plain_ms_d_track,
+                      whole_track_bound_ms=bound_d_track["bound_ms"])
+    for k in kernels:
+        k["launches_opt_in"] = {name: o["launches"][k["name"]] for name, o in opt_in.items()}
     phase("total", f"{time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

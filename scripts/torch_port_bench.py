@@ -24,6 +24,13 @@ comes from here. Run from the repository root on a machine with a card:
       print, for kernels B and C on each of their inputs, the SM clock cycles
       between the phase boundaries that thread 0 of each block stamps, for
       the slowest block and the median block, beside the kernel's time.
+  python3 scripts/torch_port_bench.py optin [--tracks N] [--configs a,b]
+      the opt-in configurations of ``measure.OPT_IN_CONFIGS`` (HPSS onsets +
+      percussive fallback + LOUDNESS; tuning compensation + exact HPCP peaks;
+      log-frequency chroma) on the first N tracks (default 40) of the
+      adversarial mix x 180 s: a warm-up and two timed batches each, tracks/s,
+      peak device memory, launch counts, and for the HPSS config the times of
+      its own stages and of one masked median filter on either axis.
   python3 scripts/torch_port_bench.py compare --parent DIR
       ``kernels`` and ``batches`` for two trees on one card in one call, each
       in a process of its own, in the order parent, change, change, parent.
@@ -194,6 +201,42 @@ def run_batches() -> dict:
     return result
 
 
+def run_opt_in(tracks: int, names) -> dict:
+    import torch
+    from stratum_dsp_tpu_torch.ops import masked
+
+    dev = torch.device("cuda:0")
+    measure = load_measure()
+    mixes, lengths = measure.real_size_mixes(dev)
+    # trap-zone kicks first, so that a small batch still escalates and falls back
+    batch, lengths = mixes["adversarial"].flip(0)[:tracks].contiguous(), lengths[:tracks]
+    result = {"tracks": tracks}
+    for name in names:
+        cfg = measure.opt_in_config(name)
+        run = measure.timed_batches(batch, lengths, cfg, dev, 2)
+        out = run.pop("out")
+        result[name] = dict(run, tracks_per_s=tracks / float(np.median(run["walls_s"])),
+                            bpm=[round(x, 2) for x in out["bpm"].tolist()],
+                            percussive_triggered=int(out["percussive_triggered"].sum()),
+                            percussive_used=int(out["percussive_used"].sum()))
+        del out
+        if name == "hpss":
+            result[name]["stages"] = measure.hpss_stage_times(batch, lengths, cfg, dev)
+            # one median of either axis of a [tracks, F, 1025] spectrogram
+            frames = (batch.shape[1] - 2048) // 512 + 1
+            x = torch.rand((tracks, frames, 1025), device=dev)
+            counts = torch.full((tracks, 1), frames, device=dev)
+            bins = torch.full((tracks, 1), 1025, device=dev)
+            result[name]["median_time_axis_ms"] = measure.cuda_time_ms(
+                lambda: masked.masked_median_filter_1d(x.transpose(1, 2), counts, cfg.hpss_margin),
+                1)
+            result[name]["median_freq_axis_ms"] = measure.cuda_time_ms(
+                lambda: masked.masked_median_filter_1d(x, bins, cfg.hpss_margin), 1)
+            del x
+        torch.cuda.empty_cache()
+    return result
+
+
 def run_profile() -> dict:
     import torch
     import stratum_dsp_tpu_torch as port
@@ -289,7 +332,11 @@ def run_compare(parent: Path, timeout: int, modes) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=["kernels", "batches", "profile", "probe", "compare"])
+    parser.add_argument("mode", choices=["kernels", "batches", "profile", "probe", "optin",
+                                         "compare"])
+    parser.add_argument("--tracks", type=int, default=40, help="optin: tracks in the batch")
+    parser.add_argument("--configs", default="hpss,tuned-exact,log-frequency",
+                        help="optin: comma-separated names of measure.OPT_IN_CONFIGS")
     parser.add_argument("--tree", type=Path, default=REPO, help="checkout to import the port from")
     parser.add_argument("--parent", type=Path, help="unpacked parent commit (compare)")
     parser.add_argument("--sweep", action="store_true", help="kernels: also time other tiles")
@@ -314,7 +361,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     result = {"kernels": lambda: run_kernels(args.sweep), "batches": run_batches,
-              "profile": run_profile, "probe": run_probe}[args.mode]()
+              "profile": run_profile, "probe": run_probe,
+              "optin": lambda: run_opt_in(args.tracks, args.configs.split(","))}[args.mode]()
     print(json.dumps({"mode": args.mode, "tree": str(args.tree), "card": card(), **result}),
           flush=True)
     return 0

@@ -12,10 +12,9 @@ for Hopper (``csrc/``), built with ``nvcc`` on first use; every kernel has a
 plain PyTorch version that CPU tensors take.
 
 This package imports ``torch``, never ``jax`` and nothing of the JAX
-package. It runs the default
-``AnalysisConfig``, multi-resolution escalation included, and the switches
-around it; ``SLICE_CONFIG`` is the default with the escalation off. Other
-configs raise ``NotImplementedError``.
+package. It runs every ``AnalysisConfig`` the JAX package runs
+(``SLICE_CONFIG`` is the default with the multi-resolution escalation off);
+only a ``mesh`` raises ``NotImplementedError``.
 """
 
 from .config import DEFAULT_CONFIG, AnalysisConfig, NormalizationMethod, TemplateSet
@@ -42,7 +41,6 @@ from .analysis.pipeline import (
     PipelineCaps,
     analyze_batch,
     analyze_batch_arrays,
-    check_slice_config,
 )
 from .analysis.decode import decode_results
 from .analysis.timing import analyze_batch_timed, stage_timings

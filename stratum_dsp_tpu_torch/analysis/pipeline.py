@@ -1,15 +1,13 @@
 """Batched analysis orchestrator (port of
 ``stratum_dsp_tpu/analysis/pipeline.py``): preprocessing -> onsets ->
-streamed BPM spectral features -> tempograms + legacy estimate -> beat grid
--> multi-resolution escalation of the ambiguous tracks -> beat grid -> key
--> warnings and confidence, over a padded ``[B, T]`` batch.
+streamed BPM spectral features -> tempograms + legacy estimate ->
+multi-resolution escalation of the ambiguous tracks -> percussive fallback ->
+BPM selection (tempogram, fused with or forced to the legacy estimate) ->
+beat grid -> key -> warnings and confidence, over a padded ``[B, T]`` batch.
 
-The port covers the reference's default ``AnalysisConfig`` and the switches
-around it that ``_SLICE_REQUIREMENTS`` does not pin (``SLICE_CONFIG`` is the
-default with the multi-resolution escalation off). Every stage runs on
-``device``; a config outside the port raises ``NotImplementedError`` naming
-the setting, so a caller never gets a different pipeline than the one asked
-for.
+Every ``AnalysisConfig`` runs (``SLICE_CONFIG`` is the default with the
+multi-resolution escalation off), every stage on ``device``; only a ``mesh``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..config import AnalysisConfig, NormalizationMethod, TemplateSet
+from ..config import AnalysisConfig
 
 from ..ops.masked import cdiv
 from ..features.beat.grid import (fit_grid_drift, generate_beat_grid, search_downbeat_phase,
@@ -28,13 +26,15 @@ from ..features.beat.grid import (fit_grid_drift, generate_beat_grid, search_dow
 from ..features.key.pipeline import detect_key_batch
 from ..features.onset.consensus import consensus_onsets, vote_onsets
 from ..features.onset.energy_flux import detect_energy_flux_onsets
+from ..features.onset.hpss import hpss_decompose, percussive_energy_flux
 from ..features.onset.spectral import flux_onsets_from_curve, hfc_flux
 from ..features.period import legacy as legacy_mod
 from ..features.period import multi_resolution as mr
 from ..features.period import novelty as nov
 from ..features.period import tempogram as tg
 from ..features.period import tempogram_fft as tft
-from ..preprocessing.normalization import normalize_peak
+from ..ops.stft import stft_reduce
+from ..preprocessing.normalization import normalize
 from ..preprocessing.silence import detect_and_trim
 from . import confidence as conf_mod
 
@@ -54,46 +54,22 @@ class PipelineCaps:
     chunk_frames: int = 256
 
 
-# (field, value the slice requires) for every setting outside the port
-_SLICE_REQUIREMENTS = (
-    ("beat_contrast_fractional", False),
-    ("enable_hpss_onsets", False),
-    ("enable_tempogram_percussive_fallback", False),
-    ("enable_bpm_fusion", False),
-    ("force_legacy_bpm", False),
-    ("enable_key_stft_override", True),
-    ("enable_key_harmonic_mask", True),
-    ("enable_key_hpss_harmonic", False),
-    ("enable_key_log_frequency", False),
-    ("enable_key_beat_synchronous", False),
-    ("enable_key_multi_scale", False),
-    ("enable_key_ensemble", False),
-    ("enable_key_median", False),
-    ("enable_key_tuning_compensation", False),
-    ("enable_key_edge_trim", False),
-    ("enable_key_mode_heuristic", False),
-    ("enable_key_minor_harmonic_bonus", False),
-    ("enable_key_hpcp", True),
-    ("key_hpcp_approx_peaks", True),
-    ("enable_key_hpcp_whitening", False),
-    ("enable_key_hpcp_bass_blend", False),
-)
+def _collect_spec(samples, lengths, frame_size: int, hop: int, chunk_frames: int,
+                  bf16: bool = False):
+    """The whole magnitude spectrogram ``[B, F, K]`` and the frame counts
+    (the HPSS paths only; everything else streams)."""
+    outs, _, frame_counts = stft_reduce(
+        samples, lengths, frame_size, hop,
+        lambda spec, fidx, fvalid, carry: ({"spec": spec}, carry), lambda b: None,
+        chunk_frames=chunk_frames, bf16=bf16)
+    return outs["spec"], frame_counts
 
 
-def check_slice_config(cfg: AnalysisConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first setting outside the
-    ported slice."""
-    for name, want in _SLICE_REQUIREMENTS:
-        if getattr(cfg, name) != want:
-            raise NotImplementedError(
-                f"AnalysisConfig.{name}={getattr(cfg, name)!r} is outside the ported slice "
-                f"(requires {want!r}); run the JAX package for this configuration")
-    if cfg.enable_normalization and cfg.normalization != NormalizationMethod.PEAK:
-        raise NotImplementedError(
-            f"AnalysisConfig.normalization={cfg.normalization} is outside the ported slice "
-            "(only PEAK normalization is ported)")
-    if cfg.key_template_set not in (TemplateSet.KRUMHANSL_KESSLER, TemplateSet.TEMPERLEY):
-        raise NotImplementedError(f"AnalysisConfig.key_template_set={cfg.key_template_set}")
+def _family_related(rel):
+    out = torch.zeros_like(rel, dtype=torch.bool)
+    for r in FAMILY_RELS:
+        out = out | ((rel - r).abs() < 0.05)
+    return out
 
 
 def _tempogram_estimate(curves, nov_mask, n_valid, cfg, frame_rate, top_n):
@@ -125,10 +101,9 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     with ``cfg.debug_track_id`` the ambiguity gate's signals (``dbg_*`` [B])
     that ``debug.format_debug_dump`` prints."""
     if mesh is not None:
-        raise NotImplementedError("mesh: multi-device sharding is outside the ported slice")
+        raise NotImplementedError("mesh: multi-device sharding is not ported")
     if debug_stop_after not in STAGES:
         raise ValueError(f"debug_stop_after must be one of {STAGES}, got {debug_stop_after!r}")
-    check_slice_config(cfg)
     device = _batch_device(samples, lengths, device)
     if device.type == "cuda":
         # f32 matmuls stay f32 (the reference's band sums are f32-exact);
@@ -141,7 +116,8 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     track_ok = lengths > 0
 
     if cfg.enable_normalization:
-        samples = normalize_peak(samples, lengths, max_headroom_db=1.0)
+        samples, _ = normalize(samples, lengths, cfg.normalization, sample_rate,
+                               target_loudness_lufs=-14.0, max_headroom_db=1.0)
     trim_start = torch.zeros_like(lengths)
     if cfg.enable_silence_trimming:
         samples, lengths, sil = detect_and_trim(samples, lengths, sample_rate,
@@ -158,6 +134,12 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     curves, nov_mask, n_valid = nov.assemble_novelty_curves(feats, frame_counts, cfg)
     frame_rate = sample_rate / cfg.hop_size
 
+    if cfg.enable_hpss_onsets or cfg.enable_tempogram_percussive_fallback:
+        full_spec, _ = _collect_spec(samples, lengths, cfg.frame_size, cfg.hop_size,
+                                     caps.chunk_frames, bf16=cfg.stft_bf16)
+        _, perc_spec = hpss_decompose(full_spec, frame_counts, cfg.hpss_margin)
+        del full_spec
+
     onsets_pos, onsets_valid = e_pos, e_valid
     consensus_used = torch.zeros_like(track_ok)
     if cfg.enable_onset_consensus:
@@ -167,8 +149,13 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
         hflux, h_n = hfc_flux(feats["hfc"][:, :, 0], frame_counts)
         h_pos, h_valid = flux_onsets_from_curve(hflux, h_n, cfg.onset_threshold_percentile,
                                                 cfg.hop_size, lengths, caps.max_onsets)
-        vote = vote_onsets([e_pos, s_pos, h_pos, torch.zeros_like(e_pos)],
-                           [e_valid, s_valid, h_valid, torch.zeros_like(e_valid)],
+        if cfg.enable_hpss_onsets:
+            pflux, p_n = percussive_energy_flux(perc_spec, frame_counts)
+            p_pos, p_valid = flux_onsets_from_curve(pflux, p_n, cfg.onset_threshold_percentile,
+                                                    cfg.hop_size, lengths, caps.max_onsets)
+        else:
+            p_pos, p_valid = torch.zeros_like(e_pos), torch.zeros_like(e_valid)
+        vote = vote_onsets([e_pos, s_pos, h_pos, p_pos], [e_valid, s_valid, h_valid, p_valid],
                            list(cfg.onset_consensus_weights), cfg.onset_consensus_tolerance_ms,
                            sample_rate)
         c_pos, c_valid = consensus_onsets(vote, caps.max_onsets)
@@ -203,6 +190,7 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     mr_triggered = ambiguous & tempo_ok
 
     chosen_bpm, chosen_conf = base["bpm"], base["confidence"]
+    chosen_agree = base["method_agreement"]
     cand_arrays = {k: base[k] for k in mr.CAND_KEYS}
     mr_used = torch.zeros_like(ambiguous)
     if cfg.enable_tempogram_multi_resolution:
@@ -213,13 +201,11 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
                 chosen_bpm > EPSILON,
                 torch.maximum(mres["bpm"] / chosen_bpm.clamp_min(EPSILON),
                               chosen_bpm / mres["bpm"].clamp_min(EPSILON)), 1.0)
-            family_related = torch.zeros_like(ambiguous)
-            for r in FAMILY_RELS:
-                family_related = family_related | ((rel - r).abs() < 0.05)
+            family_related = _family_related(rel)
             forbid_high = (chosen_bpm <= 180.0) & (mres["bpm"] > 180.0)
             mr_better = ~forbid_high & (
                 (mres["confidence"] >= chosen_conf + 0.05)
-                | ((mres["method_agreement"] > base["method_agreement"])
+                | ((mres["method_agreement"] > chosen_agree)
                    & (mres["confidence"] >= chosen_conf * 0.90))
                 | ((trap_low | trap_high) & family_related
                    & (mres["confidence"] >= chosen_conf * 0.88)
@@ -227,6 +213,7 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
             mr_used = ambiguous & mr_better & mres["ok"]
             chosen_bpm = torch.where(mr_used, mres["bpm"], chosen_bpm)
             chosen_conf = torch.where(mr_used, mres["confidence"], chosen_conf)
+            chosen_agree = torch.where(mr_used, mres["method_agreement"], chosen_agree)
             # the table follows the estimate that was chosen (the escalation's
             # is top_k wide, like the base's under the default settings)
             cand_arrays = {k: torch.where(mr_used[:, None], mres[k][:, :v.shape[-1]], v)
@@ -234,10 +221,54 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
 
     if debug_stop_after == "multires":
         return {"bpm": chosen_bpm, "conf": chosen_conf}
-    tempo_valid = tempo_ok & (chosen_bpm > 0.0)
-    bpm = torch.where(tempo_valid, chosen_bpm, torch.where(legacy["ok"], legacy["bpm"], 0.0))
-    bpm_confidence = torch.where(tempo_valid, chosen_conf,
-                                 torch.where(legacy["ok"], legacy["confidence"], 0.0))
+
+    # percussive fallback (lib.rs:587-683): the tempogram of the HPSS
+    # percussive part, for ambiguous tracks in the low trap
+    perc_needed = ambiguous & trap_low
+    perc_used = torch.zeros_like(perc_needed)
+    if cfg.enable_tempogram_percussive_fallback:
+        pfeats = nov.compute_bpm_features_from_spec(
+            perc_spec, frame_counts, cfg, sample_rate, cfg.frame_size, emit_stride2=False,
+            emit_onset_flux=False)
+        pcurves, pmask, pn = nov.assemble_novelty_curves(pfeats, frame_counts, cfg)
+        pest = _tempogram_estimate(pcurves, pmask, pn, cfg, frame_rate, base_top_n)
+        rel = torch.maximum(pest["bpm"] / chosen_bpm.clamp_min(EPSILON),
+                            chosen_bpm / pest["bpm"].clamp_min(EPSILON))
+        forbid_high = (chosen_bpm <= 180.0) & (pest["bpm"] > 180.0)
+        base_low_trap = trap_low | (base["bpm"] < 95.0)
+        in_common = (pest["bpm"] >= 70.0) & (pest["bpm"] <= 180.0)
+        p_better = ~forbid_high & _family_related(rel) & in_common & (
+            (pest["confidence"] >= chosen_conf + 0.04)
+            | (base_low_trap & (pest["confidence"] >= chosen_conf * 0.85))
+            | ((pest["method_agreement"] > chosen_agree)
+               & (pest["confidence"] >= chosen_conf * 0.92)))
+        perc_used = perc_needed & p_better
+        chosen_bpm = torch.where(perc_used, pest["bpm"], chosen_bpm)
+        chosen_conf = torch.where(perc_used, pest["confidence"], chosen_conf)
+
+    # BPM selection (lib.rs:814-900)
+    legacy_bpm = torch.where(legacy["ok"], legacy["bpm"], 0.0)
+    legacy_conf = torch.where(legacy["ok"], legacy["confidence"], 0.0)
+    if cfg.force_legacy_bpm:
+        tempo_valid = torch.zeros_like(tempo_ok)
+        bpm, bpm_confidence = legacy_bpm, legacy_conf
+    else:
+        tempo_valid = tempo_ok & (chosen_bpm > 0.0)
+        tempo_conf = chosen_conf
+        if cfg.enable_bpm_fusion:
+            # the legacy estimate raises the confidence where it agrees with
+            # the tempogram up to a metrical factor, and lowers it where not
+            l_conf = legacy["confidence"].clamp(0.0, 1.0)
+            t_conf = chosen_conf.clamp(0.0, 1.0)
+            diffs = torch.stack([(legacy["bpm"] - chosen_bpm * m).abs()
+                                 for m in (1.0, 0.5, 2.0, 2.0 / 3.0, 1.5)], dim=-1)
+            has_legacy = legacy["ok"] & (legacy["bpm"] > 0.0)
+            agree = has_legacy & (diffs <= 2.0).any(dim=-1)
+            tempo_conf = torch.where(
+                agree, (t_conf + 0.12 * l_conf).clamp(0.0, 1.0),
+                torch.where(has_legacy, (t_conf * 0.90).clamp(0.0, 1.0), t_conf))
+        bpm = torch.where(tempo_valid, chosen_bpm, legacy_bpm)
+        bpm_confidence = torch.where(tempo_valid, tempo_conf, legacy_conf)
     bpm = torch.where(track_ok, bpm, 0.0)
     bpm_confidence = torch.where(track_ok, bpm_confidence, 0.0)
     legacy_used = track_ok & (bpm > 0.0) & ~tempo_valid
@@ -263,7 +294,11 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
         return {"bpm": bpm, "stability": grid.stability}
 
     # key (lib.rs:961-1559)
-    key = detect_key_batch(samples, lengths, cfg, sample_rate)
+    if cfg.enable_key_beat_synchronous:
+        key = detect_key_batch(samples, lengths, cfg, sample_rate, grid.beat_times,
+                               grid.beat_valid)
+    else:
+        key = detect_key_batch(samples, lengths, cfg, sample_rate)
     key_ok = track_ok & (lengths >= cfg.frame_size)
     key_idx = torch.where(key_ok, key.key_idx, 0)
     key_confidence = torch.where(key_ok, key.confidence, 0.0)
@@ -277,7 +312,6 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
                                        grid.stability, bpm_warning=warn_bpm,
                                        key_warning=warn_key_conf | warn_key_clarity)
     i32 = torch.int32
-    no = torch.zeros_like(track_ok)
     out = {
         "ok": track_ok,
         "bpm": bpm,
@@ -299,8 +333,9 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
         "legacy_used": legacy_used,
         "multi_res_triggered": mr_triggered,
         "multi_res_used": mr_used,
-        "percussive_triggered": no,
-        "percussive_used": no,
+        "percussive_triggered": perc_needed if cfg.enable_tempogram_percussive_fallback
+        else torch.zeros_like(perc_needed),
+        "percussive_used": perc_used,
         "warn_bpm_failed": warn_bpm,
         "warn_low_grid_stability": warn_grid,
         "warn_low_key_confidence": warn_key_conf,

@@ -4,8 +4,7 @@ Mirror of the reference's ``analyze_file`` example (examples/analyze_file.rs):
 decode -> analyze -> JSON on stdout. Config flags map 1:1 onto
 ``AnalysisConfig`` (auto-generated from the dataclass). The analysis runs on
 the current CUDA device unless ``--device`` names another (``--device cpu``
-for the CPU); a config outside the port raises ``NotImplementedError`` naming
-the setting.
+for the CPU).
 
 Usage: python -m stratum_dsp_tpu_torch.cli.analyze_file track.wav --json
 """

@@ -1,13 +1,15 @@
 """Chroma post-processing (port of
 ``stratum_dsp_tpu/features/chroma/postprocess.py``; chroma/normalization.rs,
-smoothing.rs): L2 normalization, sharpening, temporal median smoothing."""
+smoothing.rs): L2 normalization, sharpening, temporal median and
+moving-average smoothing."""
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ...ops import masked
 
 EPSILON = 1e-10
 
@@ -38,24 +40,25 @@ def smooth_chroma_median(chroma, n_frames, window: int):
     if window % 2 == 0:
         window += 1
     x = chroma.transpose(-1, -2)  # [B, 12, F]
-    out = median_select_nth_masked(x, n_frames[:, None], window // 2)
+    out = masked.masked_select_nth_filter_1d(x, n_frames[:, None], window // 2)
     return out.transpose(-1, -2)
 
 
-def median_select_nth_masked(x, n_valid, half: int):
-    """select_nth-style median (index len/2) over windows clipped to
-    [0, n_valid) per row; entries at or beyond n_valid pass through."""
-    n = x.shape[-1]
-    nv = n_valid[..., None]
-    idx = torch.arange(n, device=x.device)
-    shifts = []
-    for off in range(-half, half + 1):
-        j = idx + off
-        ok = (j >= 0) & (j < nv)
-        shifts.append(torch.where(ok, x[..., j.clamp(0, n - 1)], math.inf))
-    s = torch.sort(torch.stack(shifts, dim=-1), dim=-1).values
-    lo = (idx - half).clamp_min(0)
-    hi = torch.minimum(idx + half, nv - 1)
-    mid = ((hi - lo + 1).clamp_min(1) // 2).expand(s.shape[:-1])
-    med = torch.gather(s, -1, mid[..., None].clamp_max(2 * half))[..., 0]
-    return torch.where(idx < nv, med, x)
+def smooth_chroma_average(chroma, n_frames, window: int):
+    """Moving-average temporal smoothing (smoothing.rs:109-160): a centered
+    window clipped to the valid frame range."""
+    if window <= 1:
+        return chroma
+    if window % 2 == 0:
+        window += 1
+    half = window // 2
+    f = chroma.shape[-2]
+    idx = torch.arange(f, device=chroma.device)
+    fmask = idx < n_frames[..., None]
+    c0 = F.pad(torch.cumsum(torch.where(fmask[..., None], chroma, 0.0), dim=-2), (0, 0, 1, 0))
+    lo = (idx - half).clamp(0, f)
+    hi = (idx + half + 1).clamp(0, f)
+    sums = c0[..., hi, :] - c0[..., lo, :]
+    cm0 = F.pad(torch.cumsum(fmask.to(chroma.dtype), dim=-1), (1, 0))
+    cnt = cm0[..., hi] - cm0[..., lo]
+    return torch.where(fmask[..., None], sums / cnt.clamp_min(1.0)[..., None], chroma)

@@ -65,10 +65,13 @@ def beat_contrast_score(novelty, n_valid, bpm, sample_rate: int, hop: int,
     """Phase-optimized beat-contrast alignment (multi_resolution.rs:580-678)
     of ``novelty [B, N]`` for candidates ``bpm [B, F]``: max over phases of
     (mean windowed max at the beats - 0.6 half-beat mean - 0.4 third-beat
-    mean) over the mean novelty. Returns [B, F]. The integer-frame comb of
-    the reference only."""
-    if fractional:
-        raise NotImplementedError("beat_contrast_fractional=True is outside the ported slice")
+    mean) over the mean novelty. Returns [B, F].
+
+    ``fractional`` (``cfg.beat_contrast_fractional``) steps the comb at the
+    float period and rounds each beat on its own, where the integer-frame comb
+    of multi_resolution.rs:580-604 rounds the period once: at 113.6 BPM the
+    period is 45.48 frames, the integer comb steps 45 and drifts a frame every
+    two beats, which loses the true tempo to its 2/3 relative."""
     b, n = novelty.shape
     dev = novelty.device
     frames_per_beat = masked.rdiv(60.0 * sample_rate, bpm.clamp_min(EPSILON) * hop)
@@ -82,6 +85,9 @@ def beat_contrast_score(novelty, n_valid, bpm, sample_rate: int, hop: int,
     mx = torch.where(valid, masked.max_pool_1d(novm, 2), 0.0)  # windowed max +-2 frames
     total = novm.sum(dim=-1).clamp_min(EPSILON)
     mean_nov = (total / n_valid.clamp_min(1).to(torch.float32)).clamp_min(EPSILON)
+
+    if fractional:
+        return torch.where(ok, _fractional_contrast(mx, n_valid, frames_per_beat, mean_nov), 0.0)
 
     # Every frame i < n_valid lies in exactly one phase class i mod p, so
     # the four phase-grid means derive from the class sums T0[m] (one
@@ -125,6 +131,48 @@ def beat_contrast_score(novelty, n_valid, bpm, sample_rate: int, hop: int,
     return torch.where(ok, best, 0.0)
 
 
+def _fractional_contrast(mx, n_valid, frames_per_beat, mean_nov):
+    """The best phase's contrast ``[B, F]`` of the float-period comb over the
+    windowed maxima ``mx [B, N]``: positions ``[B, F, P, K]`` of K beats at
+    P phases, each rounded on its own and gathered from ``mx``.
+
+    Beside the half- and third-beat penalties it subtracts 0.75 of the
+    per-beat standard deviation: a grid at 2/3 or 4/3 of the true tempo hits
+    every other beat, so its beat mean stays high while its half and third
+    offsets miss every event; the true tempo's grid hits every beat."""
+    b, n = mx.shape
+    f = frames_per_beat.shape[-1]
+    dev = mx.device
+    fpb = frames_per_beat.clamp(float(PERIOD_MIN), float(PHASE_CAP))
+    n_k = n // PERIOD_MIN + 2
+    karr = torch.arange(n_k, dtype=torch.float32, device=dev)
+    jphase = masked.cdiv(torch.arange(PHASE_CAP, dtype=torch.float32, device=dev), PHASE_CAP)
+    base = jphase[None, None, :] * fpb[:, :, None]  # [B, F, P]
+
+    def cmean(offset_frac: float, with_std: bool = False):
+        pos = masked.fma((karr + offset_frac)[None, None, None, :], fpb[:, :, None, None],
+                         base[..., None])
+        q = torch.round(pos).to(torch.int64)  # [B, F, P, K]
+        valid = q < n_valid[:, None, None, None]
+        v = torch.gather(mx, -1, q.clamp(0, n - 1).reshape(b, -1)).reshape(q.shape)
+        v = torch.where(valid, v, 0.0)
+        cnt = valid.sum(dim=-1).to(torch.float32).clamp_min(1.0)  # [B, F, P]
+        mean = v.sum(dim=-1) / cnt
+        if not with_std:
+            return mean, cnt
+        var = torch.where(valid, (v - mean[..., None]) ** 2, 0.0).sum(dim=-1) / cnt
+        return mean, cnt, torch.sqrt(var.clamp_min(0.0))
+
+    beat_mean, beat_n, beat_std = cmean(0.0, with_std=True)
+    half_mean, _ = cmean(0.5)
+    t1, t1n = cmean(1.0 / 3.0)
+    t2, t2n = cmean(2.0 / 3.0)
+    third = (t1 * t1n + t2 * t2n) / (t1n + t2n).clamp_min(1.0)
+    contrast = (beat_mean - 0.75 * beat_std) - 0.60 * half_mean - 0.40 * third
+    score = (contrast / mean_nov[:, None, None]).clamp(-10.0, 10.0)
+    return torch.where(beat_n > 0, score, -1e9).amax(dim=-1)
+
+
 def _prior(bpm, score):
     return torch.where(bpm > 210.0, score * 0.80,
                        torch.where(bpm > 180.0, score * 0.90,
@@ -142,8 +190,6 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
     ``feats`` and ``frame_counts`` (its streamed features, with the stride-2
     SuperFlux), ``novelty_full`` and ``n_valid``. Without it the hop-512 and
     hop-1024 passes are recomputed from the samples."""
-    if cfg.beat_contrast_fractional:
-        raise NotImplementedError("beat_contrast_fractional=True is outside the ported slice")
     top_k = max(cfg.tempogram_multi_res_top_k, 1)
     aux_k = int(np.clip(top_k * 4, 25, 200))
     tol = max(2.0, cfg.bpm_resolution)
@@ -274,14 +320,16 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
     alt = fam_ok & ((fam_bpm - best_bpm[:, None]).abs() > DEDUP_TOL)
     max_alt = torch.where(alt, fs / best_support[:, None], 0.0).amax(dim=-1)
     run_family = (best_bpm >= 70.0) & (best_bpm <= 180.0) & (n_fam >= 2) & (max_alt >= 0.45)
-    align = beat_contrast_score(nov512, nval512, fam_bpm, sample_rate, 512)
+    align = beat_contrast_score(nov512, nval512, fam_bpm, sample_rate, 512,
+                                cfg.beat_contrast_fractional)
     support_norm = (fs / best_support[:, None]).clamp(0.0, 1.0)
     fam_score = torch.where(fam_ok, align + 0.35 * support_norm, -1e9)
     ch = fam_score.argmax(dim=-1, keepdim=True)
     ch_bpm = torch.gather(fam_bpm, 1, ch)[:, 0]
     ch_align = torch.gather(align, 1, ch)[:, 0]
     ch_support = torch.gather(fs, 1, ch)[:, 0]
-    cur_align = beat_contrast_score(nov512, nval512, best_bpm[:, None], sample_rate, 512)[:, 0]
+    cur_align = beat_contrast_score(nov512, nval512, best_bpm[:, None], sample_rate, 512,
+                                    cfg.beat_contrast_fractional)[:, 0]
     do_fam = run_family & ((ch_bpm - best_bpm).abs() > DEDUP_TOL) & (ch_align >= cur_align + 0.40)
     best_bpm = torch.where(do_fam, ch_bpm, best_bpm)
     best_score = torch.where(do_fam, ch_support, best_score)

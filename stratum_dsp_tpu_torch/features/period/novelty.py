@@ -119,6 +119,24 @@ def compute_bpm_spectral_features(samples, lengths, cfg: AnalysisConfig, sample_
     return outs, frame_counts, nf_padded
 
 
+def compute_bpm_features_from_spec(spec, frame_counts, cfg: AnalysisConfig, sample_rate: int,
+                                   frame_size: int, emit_stride2=None,
+                                   emit_onset_flux: bool = True):
+    """The streaming reducer's per-frame features from a whole spectrogram
+    ``[B, F, K]`` that already exists (the percussive part of an HPSS): one
+    call of the reducer with a zero carry, so on the card one launch of the
+    kernel over all F frames."""
+    reducer, carry_init, band_names = make_bpm_reducer(
+        cfg, sample_rate, frame_size, spec.device, emit_stride2=emit_stride2,
+        emit_onset_flux=emit_onset_flux)
+    b, f, _ = spec.shape
+    fvalid = masked.length_mask(frame_counts, f)
+    spec = torch.where(fvalid[..., None], spec, 0.0)
+    outs, _ = reducer(spec, torch.arange(f, device=spec.device), fvalid, carry_init(b))
+    outs["band_names"] = band_names
+    return outs
+
+
 def decimate_features_2x(features: Dict[str, torch.Tensor], frame_counts):
     """Hop-2H per-frame features from hop-H streamed features: hop-2H frames
     are the even hop-H frames, so energy, HFC and mel decimate by 2 and the

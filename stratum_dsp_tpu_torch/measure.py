@@ -1,7 +1,8 @@
 """What ``chip_smoke.py`` and ``scripts/torch_port_bench.py`` share: the
 device timer, the kernels' inputs at the main path's shapes, the empty launch
 that latency-bound kernels are held against, the two real-size mixes of
-tracks, and a mix written out as WAV files.
+tracks, a mix written out as WAV files, and the opt-in configurations that
+are measured at the real size with the run that measures them.
 
 The port is imported by its absolute name inside each function, so that a
 script which loads this file on its own (``torch_port_bench.py --tree DIR``)
@@ -17,6 +18,9 @@ import torch
 B_REAL, SECONDS_REAL = 40, 180.0  # the real-size batch: tracks, seconds each at 44.1 kHz
 # kernel A on the main path: R, ext (a 192-frame chunk + 2 * 12), keep, KP
 STAGE2_SHAPE = (16, 216, 931, 1024)
+# kernel A under enable_key_log_frequency, which keeps every bin of the
+# 8192-point STFT: R, ext, keep, KP
+STAGE2_WIDE_SHAPE = (16, 216, 4097, 4224)
 D_VARIANTS = {"base": dict(emit_stride2=True, emit_onset=True, use_mel=True),
               "aux": dict(emit_stride2=False, emit_onset=False, use_mel=True)}
 # kick tempi of the mixes; the other tracks of a batch are C-major scales.
@@ -25,6 +29,22 @@ CLEAN_BPMS = np.round(np.linspace(85, 168, 32)).astype(np.float32)
 ADVERSARIAL_BPMS = np.concatenate([np.round(np.linspace(85.0, 168.0, 28)),
                                    np.round(np.linspace(56.0, 79.0, 6)),
                                    np.round(np.linspace(172.0, 199.0, 6))]).astype(np.float32)
+
+
+# The opt-in configurations measured at the real size (overrides of the
+# default config; "loudness" is the NormalizationMethod's value), and what
+# each changes in a batch's launches: key STFT passes (81 launches of kernel A
+# each), and one whole-track launch of kernel D by the percussive fallback.
+OPT_IN_CONFIGS = {
+    "hpss": dict(overrides=dict(enable_hpss_onsets=True,
+                                enable_tempogram_percussive_fallback=True,
+                                normalization="loudness"), key_passes=1, whole_track_d=1),
+    "tuned-exact": dict(overrides=dict(enable_key_tuning_compensation=True,
+                                       key_hpcp_approx_peaks=False), key_passes=2,
+                        whole_track_d=0),
+    "log-frequency": dict(overrides=dict(enable_key_log_frequency=True, enable_key_hpcp=False),
+                          key_passes=1, whole_track_d=0),
+}
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -131,6 +151,87 @@ def kernel_inputs(device, seed: int = 7):
     spec[5, 100:] = 0.0
     prev2 = torch.as_tensor(rng.random((B_REAL, 2, tables.n_bins), np.float32), device=device)
     return (bd, r, ext, keep), (spec, prev2, tables)
+
+
+def whole_track_spectrogram(device, seed: int = 13):
+    """Kernel D's inputs as the percussive fallback gives them: ``(spec,
+    prev2, tables)`` with ``spec [40, F, 1025]`` f32 made on the card, F the
+    2048/512 frame count of a 180 s track, rows past a shorter track's count
+    zeroed, and a zero carry."""
+    import stratum_dsp_tpu_torch as port
+    from stratum_dsp_tpu_torch import testing
+    from stratum_dsp_tpu_torch.features.period.novelty import novelty_tables
+
+    tables = novelty_tables(port.AnalysisConfig(), testing.SAMPLE_RATE, 2048)
+    frames = (int(SECONDS_REAL * testing.SAMPLE_RATE) - 2048) // 512 + 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    spec = torch.rand((B_REAL, frames, tables.n_bins), generator=gen, device=device) * 3.0
+    spec[5, frames // 3:] = 0.0
+    prev2 = torch.zeros((B_REAL, 2, tables.n_bins), device=device)
+    return spec, prev2, tables
+
+
+def opt_in_config(name: str):
+    """The port's ``AnalysisConfig`` of an entry of ``OPT_IN_CONFIGS``."""
+    import stratum_dsp_tpu_torch as port
+
+    return port.AnalysisConfig.from_dict(OPT_IN_CONFIGS[name]["overrides"])
+
+
+def timed_batches(batch, lengths, cfg, device, timed: int) -> dict:
+    """A warm-up, then ``timed`` batches of ``cfg`` on the card, each ended by
+    a synchronise: the walls, the last batch's result, the launch counts of
+    the first timed batch (every count set to 0 just before it) and the peak
+    device memory over the timed batches."""
+    import time
+
+    import stratum_dsp_tpu_torch as port
+
+    walls, launches, out = [], None, None
+    for i in range(timed + 1):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats(device)
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = port.analyze_batch(batch, lengths, cfg, device=device)
+        torch.cuda.synchronize(device)
+        if i:
+            walls.append(time.perf_counter() - t0)
+        if i == 1:
+            launches = {fn.__name__: fn.launches for fn in port.KERNELS}
+    return {"walls_s": walls, "out": out, "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+
+
+def hpss_stage_times(batch, lengths, cfg, device) -> dict:
+    """Seconds of the HPSS path's own stages on ``batch``, each between two
+    synchronisations: the materialized BPM spectrogram, the decomposition, and
+    the reducer over the whole percussive spectrogram (one launch of kernel D)."""
+    import time
+
+    from stratum_dsp_tpu_torch import testing
+    from stratum_dsp_tpu_torch.analysis.pipeline import _collect_spec
+    from stratum_dsp_tpu_torch.features.onset.hpss import hpss_decompose
+    from stratum_dsp_tpu_torch.features.period.novelty import compute_bpm_features_from_spec
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(device)
+        return res, time.perf_counter() - t0
+
+    out = {}
+    with torch.no_grad():
+        (spec, counts), out["collect_spec_s"] = timed(lambda: _collect_spec(
+            batch, lengths, cfg.frame_size, cfg.hop_size, 256, bf16=cfg.stft_bf16))
+        (_, perc), out["hpss_decompose_s"] = timed(
+            lambda: hpss_decompose(spec, counts, cfg.hpss_margin))
+        del spec
+        _, out["features_from_spec_s"] = timed(lambda: compute_bpm_features_from_spec(
+            perc, counts, cfg, testing.SAMPLE_RATE, cfg.frame_size, emit_stride2=False,
+            emit_onset_flux=False))
+    return out
 
 
 def real_size_mixes(device):

@@ -48,6 +48,14 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor, initial: float = 0.0) -> tor
     return torch.where(mask, x, initial).amax(dim=-1)
 
 
+def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, x, 0.0).sum(dim=-1)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return masked_sum(x, mask) / mask.sum(dim=-1).clamp_min(1)
+
+
 def normalize_by_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Divide by the masked max where it exceeds EPSILON (novelty.rs:935-942)."""
     mx = masked_max(x, mask)[..., None]
@@ -93,6 +101,13 @@ def max_pool_1d(x: torch.Tensor, radius: int) -> torch.Tensor:
     shape = x.shape
     flat = F.pad(x.reshape(-1, 1, shape[-1]), (radius, radius), value=float("-inf"))
     return F.max_pool1d(flat, 2 * radius + 1, stride=1).reshape(shape)
+
+
+def windowed_any(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """Boolean OR over the window [i-left, i+right] on the last axis."""
+    shape = x.shape
+    flat = F.pad(x.reshape(-1, 1, shape[-1]).to(torch.float32), (left, right))
+    return F.max_pool1d(flat, left + right + 1, stride=1).reshape(shape) > 0.0
 
 
 def masked_sort(x: torch.Tensor, mask: torch.Tensor, fill: float = float("inf")) -> torch.Tensor:
@@ -153,3 +168,91 @@ def searchsorted_nearest(query: torch.Tensor, sorted_vals: torch.Tensor, n_valid
     d_lo = torch.where(idx > 0, (query - o_lo).abs(), big)
     d_hi = torch.where(idx < n_valid[..., None], (query - o_hi).abs(), big)
     return torch.where(d_lo <= d_hi, o_lo, o_hi), torch.minimum(d_lo, d_hi)
+
+
+# elements of the window stack (rows x positions x window) one sort may hold;
+# larger inputs go through the median filters a slab of rows at a time
+MEDIAN_SLAB_ELEMENTS = 1 << 28
+
+
+def _window_median(x: torch.Tensor, n_valid, half: int, average_even: bool) -> torch.Tensor:
+    """Median of the window [i-half, i+half], clipped to each row's valid
+    range [0, n_valid), at every position of the last axis. ``n_valid``
+    broadcasts against ``x[..., 0]`` (None: the whole axis); entries at
+    i >= n_valid come back unchanged. An even count averages the two middle
+    values or, without ``average_even``, takes element count // 2.
+
+    Every window is sorted with its out-of-range entries as +inf at the end,
+    ``MEDIAN_SLAB_ELEMENTS`` window elements at a time, so the result is a
+    selection from ``x`` (or the mean of two) whatever the slab size."""
+    n = x.shape[-1]
+    flat = x.reshape(-1, n)
+    if n_valid is None:
+        nv = torch.full((flat.shape[0],), n, device=x.device)
+    else:
+        nv = torch.as_tensor(n_valid, device=x.device).expand(x.shape[:-1]).reshape(-1)
+    idx = torch.arange(n, device=x.device)
+    lo = (idx - half).clamp_min(0)
+    out = torch.empty_like(flat)
+    rows = max(1, MEDIAN_SLAB_ELEMENTS // (n * (2 * half + 1)))
+    for r0 in range(0, flat.shape[0], rows):
+        sl = slice(r0, r0 + rows)
+        valid = idx < nv[sl, None]
+        windows = F.pad(torch.where(valid, flat[sl], float("inf")), (half, half),
+                        value=float("inf")).unfold(-1, 2 * half + 1, 1)
+        s = windows.sort(dim=-1).values
+        cnt = (torch.minimum(idx + half, nv[sl, None] - 1) - lo + 1).clamp_min(1)
+        mid = cnt // 2
+        med = torch.gather(s, -1, mid[..., None])[..., 0]
+        if average_even:
+            mid = torch.where(cnt % 2 == 0, mid - 1, mid)
+            med = 0.5 * (med + torch.gather(s, -1, mid[..., None])[..., 0])
+        out[sl] = torch.where(valid, med, flat[sl])
+    return out.reshape(x.shape)
+
+
+def median_filter_1d(x: torch.Tensor, half: int) -> torch.Tensor:
+    """Centered median filter on the last axis, the window [i-half, i+half]
+    clipped to the array; an even count averages the two middle values
+    (hpss.rs:196-201)."""
+    return _window_median(x, None, half, True)
+
+
+def masked_median_filter_1d(x: torch.Tensor, n_valid: torch.Tensor, half: int) -> torch.Tensor:
+    """``median_filter_1d`` with the window clipped to each row's valid range
+    [0, n_valid) (hpss.rs:179-243); ``n_valid`` broadcasts against
+    ``x[..., 0]`` and entries at i >= n_valid come back unchanged."""
+    return _window_median(x, n_valid, half, True)
+
+
+def median_filter_1d_select_nth(x: torch.Tensor, half: int) -> torch.Tensor:
+    """Median filter that takes the single element at index count // 2 of the
+    clipped window, with no even-count averaging (``select_nth_unstable``,
+    extractor.rs:1430-1438)."""
+    return _window_median(x, None, half, False)
+
+
+def masked_select_nth_filter_1d(x: torch.Tensor, n_valid: torch.Tensor, half: int) -> torch.Tensor:
+    """``median_filter_1d_select_nth`` with the window clipped to each row's
+    valid range [0, n_valid) (smoothing.rs:37-94); ``n_valid`` broadcasts
+    against ``x[..., 0]`` and entries at i >= n_valid come back unchanged."""
+    return _window_median(x, n_valid, half, False)
+
+
+def distance_to_nearest_true(mask: torch.Tensor, big: float = 1e9) -> torch.Tensor:
+    """Distance in indices, along the last axis, from each position to the
+    nearest True entry (f32); ``big`` in rows without one."""
+    n = mask.shape[-1]
+    idx = torch.arange(n, device=mask.device)
+    last = torch.where(mask, idx, -1).cummax(dim=-1).values
+    nxt = torch.where(mask, idx, 2 * n).flip(-1).cummin(dim=-1).values.flip(-1)
+    fwd = torch.where(last >= 0, (idx - last).to(torch.float32), big)
+    bwd = torch.where(nxt < 2 * n, (nxt - idx).to(torch.float32), big)
+    return torch.minimum(fwd, bwd)
+
+
+def top_k_masked(x: torch.Tensor, mask: torch.Tensor, k: int, fill: float = float("-inf")):
+    """The k largest masked entries of the last axis as (values, indices),
+    ties to the lowest index; slots beyond the valid entries hold ``fill``."""
+    vals, idx = torch.sort(torch.where(mask, x, fill), dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

@@ -1,6 +1,6 @@
 """Synthetic test signals made on the device (port of the generators in
 ``stratum_dsp_tpu/testing/synth.py``), and the output contract two result
-dicts of the slice are compared by.
+dicts of the pipeline are compared by.
 
 ``kick_patterns`` is the closed-form batched kick train of the reference's
 ``kick_pattern_device``: a 3-minute 40-track batch is made where it is
@@ -32,6 +32,14 @@ BPM_TOL, FLOAT_TOL = 1e-2, 1e-3
 NOISE_FLOOR_KEYS = ("bpm_confidence", "confidence_bpm_confidence",
                     "confidence_overall_confidence")
 NOISE_FLOOR_TOL = 0.02
+# With ``enable_key_minor_harmonic_bonus`` every minor score gains
+# weight_sum * w * (leading tone - flat seventh) of the normalized mean chroma:
+# a difference of two small bins times a segment's weight sum (hundreds of
+# frames), which carries the ~1e-4 chroma differences between two matmul
+# orders of the key STFT into the scores at 1e-3 to 6e-3 (the port differs
+# from itself by that much between CPU thread counts); that config's clarity
+# and confidence are held to LEADING_TONE_BONUS_TOL (ROADMAP.md Queue 3).
+LEADING_TONE_BONUS_TOL = 5e-3
 # Time-signature hypotheses within this of the best score are a rounding tie.
 TS_TIE_TOL = 1e-6
 

@@ -214,15 +214,18 @@ def test_analyze_file_human_readable_and_debug_dump(wavs, jax_results, capsys):
     assert "=== DEBUG base tempogram (track_id=0) ===" in err and "GT support" in err
 
 
-def test_analyze_file_never_carries_on_on_the_cpu(wavs, tmp_path):
+def test_analyze_file_never_carries_on_on_the_cpu(wavs, jax_results, tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pfile_cli.main([wavs[1], "--json"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pbatch_cli.main([wavs[1], "-o", str(tmp_path / "out.jsonl")])
-    # a config outside the port names the setting
-    with pytest.raises(NotImplementedError, match="enable_bpm_fusion"):
-        pfile_cli.main([wavs[1], "--json", "--device", "cpu", "--enable-bpm-fusion", "true"])
+    # an opt-in flag runs: fusion rescales the confidence and keeps the BPM
+    assert pfile_cli.main([wavs[1], "--json", "--device", "cpu", "--enable-bpm-fusion", "true",
+                           "--enable-key-ensemble", "true"]) == 0
+    fused = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(fused["bpm"] - jax_results[1]["bpm"]) < 2e-2
+    assert fused["bpm_confidence"] != jax_results[1]["bpm_confidence"]
     # empty audio is an error record on stderr and exit code 1
     assert pfile_cli.main([write_wav(tmp_path / "empty.wav", np.zeros(0, np.int16)),
                            "--json", "--device", "cpu"]) == 1

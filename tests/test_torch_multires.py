@@ -86,9 +86,15 @@ def test_beat_contrast_score_matches_jax(jax_multires):
                                       torch.as_tensor(cands), SAMPLE_RATE, 512).numpy()
         assert (ref != 0).any()
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="beat_contrast_fractional"):
-        pmr.beat_contrast_score(torch.as_tensor(nov512), torch.as_tensor(nval512),
-                                torch.as_tensor(spread), SAMPLE_RATE, 512, fractional=True)
+        # the float-period comb (beat_contrast_fractional)
+        ref = np.asarray(jmr.beat_contrast_score(jnp.asarray(nov512), jnp.asarray(nval512),
+                                                 jnp.asarray(cands), SAMPLE_RATE, 512,
+                                                 fractional=True))
+        got = pmr.beat_contrast_score(torch.as_tensor(nov512), torch.as_tensor(nval512),
+                                      torch.as_tensor(cands), SAMPLE_RATE, 512,
+                                      fractional=True).numpy()
+        assert (ref != 0).any()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
 
 
 def _fixture_batch():
@@ -99,7 +105,8 @@ def _fixture_batch():
     return pad_batch(tracks)
 
 
-def test_default_config_matches_jax():
+def _both_packages(cfg):
+    """(jax outputs, port outputs) of the escalation fixture under ``cfg``."""
     samples, lengths = _fixture_batch()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("STRATUM_FORCE_POLYPHASE", "1")
@@ -107,14 +114,28 @@ def test_default_config_matches_jax():
         jax.clear_caches()  # traces are cached by static args, not by env
         try:
             ref = {k: np.asarray(v) for k, v in
-                   jax_analyze(samples, lengths, CFG, SAMPLE_RATE, JaxCaps(**CAPS)).items()}
+                   jax_analyze(samples, lengths, cfg, SAMPLE_RATE, JaxCaps(**CAPS)).items()}
         finally:
             jax.clear_caches()
-    got = port.analyze_batch(samples, lengths, PCFG, SAMPLE_RATE, port.PipelineCaps(**CAPS),
-                             device="cpu")
+    got = port.analyze_batch(samples, lengths,
+                             port.AnalysisConfig.from_dict(dataclasses.asdict(cfg)), SAMPLE_RATE,
+                             port.PipelineCaps(**CAPS), device="cpu")
+    return ref, got
+
+
+def test_default_config_matches_jax():
+    ref, got = _both_packages(CFG)
     assert_outputs_match(ref, got)
     used, trig = got["multi_res_used"].numpy(), got["multi_res_triggered"].numpy()
     assert used.sum() >= 2 and (trig & ~used).sum() >= 1, (trig, used)
+
+
+def test_fractional_beat_contrast_config_matches_jax():
+    """``beat_contrast_fractional``: the float-period comb decides inside the
+    escalation, on the same fixture."""
+    ref, got = _both_packages(CFG.replace(beat_contrast_fractional=True))
+    assert_outputs_match(ref, got)
+    assert got["multi_res_triggered"].numpy().sum() >= 3
 
 
 def test_escalation_subbatch_invariance():

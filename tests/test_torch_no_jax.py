@@ -1,6 +1,7 @@
 """The port runs where neither JAX nor the JAX package can be imported (the
-card's machine has no JAX), under ``SLICE_CONFIG`` and under the default
-``AnalysisConfig``; and it runs on the card unless asked for the CPU."""
+card's machine has no JAX), under ``SLICE_CONFIG``, under the default
+``AnalysisConfig`` and under an opt-in config on the BPM side and one on the
+key side; and it runs on the card unless asked for the CPU."""
 
 import re
 import subprocess
@@ -32,6 +33,22 @@ x = testing.kick_patterns([120.0, 172.0], 6.0)
 out = port.analyze_batch(x, torch.tensor([x.shape[1]] * 2), caps=caps, device="cpu")
 assert bool(out["multi_res_triggered"][1]), out["multi_res_triggered"]
 assert abs(float(out["bpm"][0]) - 120.0) < 2.0, out["bpm"]
+# an opt-in config on the BPM side (HPSS onsets, percussive fallback, fusion,
+# LOUDNESS normalization) and one on the key side (tuning compensation, the
+# HPSS harmonic mask, exact HPCP peaks, the ensemble detector)
+bpm_side = port.SLICE_CONFIG.replace(
+    enable_hpss_onsets=True, enable_tempogram_percussive_fallback=True, enable_bpm_fusion=True,
+    normalization=port.NormalizationMethod.LOUDNESS)
+x = testing.kick_patterns([75.0, 120.0], 4.0)
+out = port.analyze_batch(x, torch.tensor([x.shape[1]] * 2), bpm_side, 44100, caps, device="cpu")
+assert bool(out["ok"].all()) and abs(float(out["bpm"][1]) - 120.0) < 2.0, out["bpm"]
+assert bool(out["percussive_triggered"][0]), out["percussive_triggered"]
+key_side = port.SLICE_CONFIG.replace(
+    enable_key_tuning_compensation=True, enable_key_hpss_harmonic=True,
+    enable_key_harmonic_mask=False, key_hpcp_approx_peaks=False, enable_key_ensemble=True)
+x = testing.c_major_scale()[None, :]
+out = port.analyze_batch(x, torch.tensor([x.shape[1]]), key_side, 44100, caps, device="cpu")
+assert bool(out["ok"][0]) and int(out["key_idx"][0]) == 0, out["key_idx"]
 assert sys.modules["jax"] is None and sys.modules["stratum_dsp_tpu"] is None
 print("bpm", float(out["bpm"][0]))
 """
@@ -121,7 +138,8 @@ def test_no_jax_import_in_port_sources():
     files = sorted((REPO / "stratum_dsp_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "torch_port_bench.py"]
     assert len(files) > 40
-    assert {"analyze_file.py", "analyze_batch.py", "decode.py", "timing.py", "result.py"} <= {
+    assert {"analyze_file.py", "analyze_batch.py", "decode.py", "timing.py", "result.py",
+            "hpss.py", "threshold.py", "peak_picking.py", "normalization.py"} <= {
         f.name for f in files}
     for path in files:
         for line in path.read_text().splitlines():

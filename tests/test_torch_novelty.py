@@ -291,6 +291,29 @@ def test_kernel_matches_plain_on_card(rng, emit_stride2, emit_onset):
     assert float(((got - ref).abs().amax(dim=(0, 1)) / scale).max()) < REL_TOL
 
 
+@pytest.mark.cuda
+def test_kernel_takes_a_whole_spectrogram_in_one_launch_on_card(rng):
+    """The percussive fallback's call: the auxiliary variant over every frame
+    of a track with a zero carry, held to the plain version taken a slab of
+    frames at a time (the two frames before a slab as its carry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda:0")
+    tables = pnov.novelty_tables(PCFG, SR, CFG.frame_size)
+    spec = torch.rand((2, 3001, tables.n_bins), device=dev) * 3.0
+    spec[1, 2000:] = 0.0
+    carry = torch.zeros((2, 2, tables.n_bins), device=dev)
+    flags = dict(emit_stride2=False, emit_onset=False, use_mel=True)
+    before = pops.fused_novelty_features.launches
+    got = pops.fused_novelty_features(spec, carry, tables, **flags)
+    assert pops.fused_novelty_features.launches == before + 1
+    ref = torch.cat([pops.fused_novelty_features_plain(
+        spec[:, f0:f0 + 512], carry if f0 == 0 else spec[:, f0 - 2:f0], tables, **flags)
+        for f0 in range(0, spec.shape[1], 512)], dim=1)
+    scale = ref.abs().amax(dim=(0, 1)) + 1e-12
+    assert float(((got - ref).abs().amax(dim=(0, 1)) / scale).max()) < REL_TOL
+
+
 def _emulate_kernel_tables(spec, prev2, tables, emit_stride2, emit_onset, use_mel):
     """The CUDA kernel's decomposition in numpy: one full-band max filter per
     row and stride, summed into the sub-bands by ``tables.bin_band``; the

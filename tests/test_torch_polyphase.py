@@ -177,3 +177,20 @@ def test_stage2_kernel_matches_plain_on_card(cuda_device, rng):
     ref = polyphase.polyphase_stage2_plain(bd, r, ext, keep)
     assert polyphase.polyphase_stage2.launches == before + 1
     assert torch.equal(got, ref)
+
+
+def test_log_frequency_width_is_inside_the_kernel_contract():
+    """With ``enable_key_log_frequency`` every bin is kept: ``keep = 4097``,
+    ``KP = 4224``. The kernel's input check admits that chunk."""
+    bd = torch.zeros((2, 240, 2 * 4224), dtype=torch.bfloat16)
+    polyphase.check_kernel_input(bd, 16, 216, 4097)
+    assert polyphase.polyphase_stage2_plain(bd, 16, 216, 4097).shape == (2, 216, 4097)
+
+
+@pytest.mark.cuda
+def test_stage2_kernel_matches_plain_at_the_log_frequency_width_on_card(cuda_device, rng):
+    r, ext, keep, kp = 16, 216, 4097, 4224
+    ebp = -(-(ext + r) // r) * r
+    bd = torch.as_tensor(_random_bd(rng, 2, ebp, kp), device=cuda_device).to(torch.bfloat16)
+    assert torch.equal(polyphase.polyphase_stage2(bd, r, ext, keep),
+                       polyphase.polyphase_stage2_plain(bd, r, ext, keep))

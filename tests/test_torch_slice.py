@@ -219,6 +219,16 @@ def test_constant_tables_match_jax():
         assert diff.max() <= ulp and (diff > 0).mean() < frac, (bf16, diff.max())
 
 
+def _jax_output_spec(samples, lengths, jax_cfg):
+    """Keys, shapes and dtypes of the JAX package's output for this config:
+    traced, not compiled or run."""
+    from stratum_dsp_tpu.analysis.pipeline import analyze_batch_arrays as jax_arrays
+
+    return jax.eval_shape(
+        lambda s, n: jax_arrays(s, n, jax_cfg, SAMPLE_RATE, JaxCaps(**CAPS)),
+        jnp.asarray(samples, jnp.float32), jnp.asarray(lengths, jnp.int32))
+
+
 @pytest.mark.parametrize("field,value", [
     ("beat_contrast_fractional", True),
     ("enable_hpss_onsets", True),
@@ -232,26 +242,36 @@ def test_constant_tables_match_jax():
     ("debug_track_id", 0),
 ])
 def test_configs_outside_the_slice_raise(field, value):
-    """A setting outside the port raises, naming it. The two diagnostics
-    settings are inside the port now: they run, and emit their outputs."""
+    """Every setting that once lay outside the port runs now: on a
+    4096-sample input the port returns the keys, shapes and dtypes the JAX
+    package returns for the same config. The two diagnostics settings emit
+    their outputs."""
     samples, lengths = np.zeros((1, 4096), np.float32), np.asarray([4096])
-    cfg = port_cfg(CFG.replace(**{field: value}))
+    jax_cfg = CFG.replace(**{field: value})
+    cfg = port_cfg(jax_cfg)
+    out = port.analyze_batch(samples, lengths, cfg, SAMPLE_RATE, port.PipelineCaps(**CAPS),
+                             device="cpu")
     if field in ("emit_tempogram_candidates", "debug_track_id"):
-        out = port.analyze_batch(samples, lengths, cfg, SAMPLE_RATE, device="cpu")
         assert out["cand_bpm"].shape == (1, cfg.tempogram_candidates_top_n)
         assert ("dbg_ambiguous" in out) == (field == "debug_track_id")
         return
-    with pytest.raises(NotImplementedError, match=field):
-        port.analyze_batch(samples, lengths, cfg, SAMPLE_RATE, device="cpu")
+    ref = _jax_output_spec(samples, lengths, jax_cfg)
+    assert set(out) == set(ref)
+    for k, v in ref.items():
+        assert out[k].shape == v.shape and out[k].numpy().dtype == v.dtype, k
 
 
 def test_rms_normalization_and_mesh_raise():
+    """RMS normalization runs (the JAX package's keys and shapes); a mesh is
+    the one thing that still raises."""
     from stratum_dsp_tpu.config import NormalizationMethod
 
     x, n = torch.zeros((1, 4096)), torch.tensor([4096])
-    with pytest.raises(NotImplementedError, match="normalization"):
-        port.analyze_batch(x, n, port_cfg(CFG.replace(normalization=NormalizationMethod.RMS)),
-                           device="cpu")
+    jax_cfg = CFG.replace(normalization=NormalizationMethod.RMS)
+    out = port.analyze_batch(x, n, port_cfg(jax_cfg), SAMPLE_RATE, port.PipelineCaps(**CAPS),
+                             device="cpu")
+    ref = _jax_output_spec(x.numpy(), n.numpy(), jax_cfg)
+    assert {k: tuple(v.shape) for k, v in out.items()} == {k: v.shape for k, v in ref.items()}
     with pytest.raises(NotImplementedError, match="mesh"):
         port.analyze_batch_arrays(x, n, port_cfg(CFG), SAMPLE_RATE, mesh=object(), device="cpu")
 

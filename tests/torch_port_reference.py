@@ -99,3 +99,52 @@ def assert_dicts_match(ref: dict, got: dict, skip=()) -> None:
                     assert g[f] == pytest.approx(w[f], abs=FLOAT_TOL), f
         else:
             assert got[k] == want, (k, got[k], want)
+
+
+# The pipeline-variant tests (``tests/test_torch_bpm_variants.py``,
+# ``tests/test_torch_hpss_pipeline.py``): one batch of kicks through the JAX
+# package and through the port on the CPU, held to each other.
+VARIANT_CAPS = dict(max_onsets=256, max_beats=256, seg_beat_cap=32, max_segments=12)
+KICK_BPMS = (75.0, 120.0, 172.0)  # the low trap, a core tempo, the high trap
+
+
+def kick_batch(seconds: float = 6.0):
+    from stratum_dsp_tpu.testing import kick_pattern, pad_batch
+
+    return pad_batch([kick_pattern(bpm, seconds) for bpm in KICK_BPMS])
+
+
+def run_both(overrides: dict, seconds: float = 6.0):
+    """(jax outputs, port outputs) as numpy dicts for the default config with
+    ``overrides``, after holding the port's to the JAX package's: bools, ints
+    and counts exactly, BPM to 1e-2, the other floats to 1e-3; a time
+    signature whose hypotheses tie on a perfectly regular grid is held to the
+    tied set (ROADMAP.md Queue 3)."""
+    import jax
+    from stratum_dsp_tpu.analysis import PipelineCaps as JaxCaps
+    from stratum_dsp_tpu.analysis import analyze_batch as jax_analyze
+    from stratum_dsp_tpu.config import AnalysisConfig
+    import stratum_dsp_tpu_torch as port
+    from stratum_dsp_tpu_torch.testing import assert_outputs_match
+
+    samples, lengths = kick_batch(seconds)
+    cfg = AnalysisConfig(**overrides)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STRATUM_FORCE_POLYPHASE", "1")
+        mp.setenv("STRATUM_FORCE_PALLAS_POLY2", "1")
+        jax.clear_caches()  # traces are cached by static args, not by env
+        try:
+            ref = {k: np.asarray(v) for k, v in
+                   jax_analyze(samples, lengths, cfg, SAMPLE_RATE, JaxCaps(**VARIANT_CAPS)).items()}
+        finally:
+            jax.clear_caches()
+    got = port.analyze_batch(samples, lengths,
+                             port.AnalysisConfig.from_dict(dataclasses.asdict(cfg)), SAMPLE_RATE,
+                             port.PipelineCaps(**VARIANT_CAPS), device="cpu")
+    got = {k: v.numpy() for k, v in got.items()}
+    assert_outputs_match(ref, got, allow_ts_ties=True)
+    assert got["ok"].all()
+    # +-2 BPM of the seed on the 120 BPM kick in every variant, no metrical
+    # family allowed (the bar of tests/test_config_variants.py)
+    assert abs(float(got["bpm"][1]) - 120.0) <= 2.0, got["bpm"]
+    return ref, got
