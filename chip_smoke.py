@@ -44,7 +44,17 @@ one line each:
    same samples analyzed in memory; decode seconds, analyze seconds and
    tracks/s from files; then one opt-in flag (``--enable-key-ensemble true``)
    through ``cli.analyze_file``, held to the same track analyzed in memory;
-12. the synthetic battery: the 338 tracks of ``testing/battery.py`` as
+12. the scale-out (``parallel/``): the 2-D (tracks 2 x time 2) mesh of
+   ``cuda:0`` against the same mesh of the CPU on four kicks, outputs held to
+   each other; at the real size (the adversarial mix, T padded for a time
+   axis of 2) the 1-D mesh of 2 held to the unsharded run on the same batch,
+   and the 2-D (1 x 2) mesh held to it on every output but the key's (its key
+   STFT is the direct DFT of the JAX package's time blocks: kernel A is not
+   launched there), its key to its own second run, the clean mix's scales in
+   C; the launches of each mesh run, the walls of the three runs, the key
+   detection's time in time blocks and unsharded; then two processes on one
+   tracks axis (``parallel.multihost --device cuda``);
+13. the synthetic battery: the 338 tracks of ``testing/battery.py`` as
    16-bit WAVs in a temporary directory (rendered in one process per CPU
    core), through the port's battery runner
    (``validation.run_battery``, batch 16, the 36 s bucket) on the card with
@@ -82,6 +92,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -131,7 +142,7 @@ def hits(scores: dict) -> dict:
 
 
 def battery_phase(port, card: str) -> tuple:
-    """Phase 12: the synthetic battery on the card against ACCURACY_r5.json
+    """Phase 13: the synthetic battery on the card against ACCURACY_r5.json
     (measured on a TPU v5e by the JAX package's runner). Returns the phase's
     seconds and the kernels' launches during the runner's run."""
     import torch
@@ -213,6 +224,161 @@ def battery_phase(port, card: str) -> tuple:
     if not all(gates.values()):
         fail(f"battery gates failed: {gates}; analyzed {analyzed}; families minus r5 {off_by}")
     return time.perf_counter() - t_phase, launches
+
+
+def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
+    """The ``[mesh]`` phase: the scale-out of ``parallel/`` on the card.
+    A (2 x 2) mesh of ``cuda:0`` against one of the CPU at the tests' size;
+    at the real size the 1-D mesh of 2 and the 2-D (1 x 2) mesh against the
+    unsharded run on the same padded batch (the key outputs of the 2-D mesh
+    apart: its key STFT is the direct DFT, as the JAX package's time blocks
+    compute it); the two-process run. Returns the launches of each mesh run
+    and the walls. ``dev`` is ``cuda:0`` (the CPU only to rehearse the
+    phase's code on small batches)."""
+    import torch
+    from stratum_dsp_tpu_torch import testing
+    from stratum_dsp_tpu_torch.features.key.pipeline import detect_key_batch
+    from stratum_dsp_tpu_torch.measure import B_REAL, SECONDS_REAL
+    from stratum_dsp_tpu_torch.parallel import mesh as pmesh
+    from stratum_dsp_tpu_torch.parallel.multihost import free_port
+
+    t_phase = time.perf_counter()
+    cuda0, cpu = dev, torch.device("cpu")
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def check(ref, got, what, skip=()):
+        try:
+            return testing.assert_outputs_match({k: v for k, v in ref.items() if k not in skip},
+                                                {k: v for k, v in got.items() if k not in skip})
+        except AssertionError as exc:
+            fail(f"[mesh] {what}: {exc}")
+
+    # the tests' size: tests/test_timeblocks.py's four kicks, its capacities
+    caps_t = port.PipelineCaps(max_onsets=256, max_beats=256, seg_beat_cap=16, max_segments=6)
+    kicks = [torch.as_tensor(testing.kick_pattern(bpm, secs))
+             for bpm, secs in ((74.0, 6.0), (132.0, 6.0), (101.0, 5.0), (156.0, 6.0))]
+    small, small_n = testing.pad_batch(kicks)
+    m_gpu, m_cpu = pmesh.make_mesh([cuda0] * 4, n_time=2), pmesh.make_mesh([cpu] * 4, n_time=2)
+    small = pmesh.pad_batch_for_mesh(small, m_gpu)
+    out_cpu = pmesh.analyze_batch_sharded(small, small_n, port.AnalysisConfig(),
+                                          testing.SAMPLE_RATE, caps_t, m_cpu)
+    port.reset_launch_counts()
+    out_gpu = pmesh.analyze_batch_sharded(small, small_n, port.AnalysisConfig(),
+                                          testing.SAMPLE_RATE, caps_t, m_gpu)
+    sync()
+    small_launches = {fn.__name__: fn.launches for fn in port.KERNELS}
+    if out_gpu["bpm"].device != cuda0 or out_cpu["bpm"].device != cpu:
+        fail(f"[mesh] results lie on {out_gpu['bpm'].device} and {out_cpu['bpm'].device}")
+    worst = check(out_cpu, out_gpu, "the (2 x 2) mesh differs between the CPU and the card")
+    phase("mesh", f"(tracks 2 x time 2) mesh on [cuda:0] * 4 and on [cpu] * 4, 4 kicks of "
+                  f"5-6 s: {len(out_gpu)} outputs agree (largest float difference {worst[1]:.3g} "
+                  f"in {worst[0]}); escalated {out_gpu['multi_res_triggered'].tolist()}; "
+                  f"launches on the card {small_launches}")
+
+    # the real size: the default config, 40 x 180 s, T padded for a time axis of 2
+    cfg = port.AnalysisConfig()
+    meshes = {
+        "unsharded": None,
+        "1-D": pmesh.make_mesh([torch.device(dev.type, i % n_cards) for i in range(2)]),
+        "2-D": pmesh.make_mesh([torch.device(dev.type, i % n_cards) for i in range(2)],
+                               n_time=2),
+    }
+    padded = {k: pmesh.pad_batch_for_mesh(v, meshes["2-D"]) for k, v in batches.items()}
+
+    def run(name, mix="adversarial"):
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        if meshes[name] is None:
+            res = port.analyze_batch(padded[mix], lengths, cfg, device=dev)
+        else:
+            res = pmesh.analyze_batch_sharded(padded[mix], lengths, cfg, testing.SAMPLE_RATE,
+                                              port.PipelineCaps(), meshes[name])
+        sync()
+        return res, time.perf_counter() - t0, {fn.__name__: fn.launches for fn in port.KERNELS}
+
+    outs, walls, launches = {}, {}, {}
+    for name in meshes:
+        outs[name], wall, launches[name] = run(name)
+        walls[name] = [wall]
+    for name in meshes:  # the first round met the padded shape cold
+        res, wall, _ = run(name)
+        walls[name].append(wall)
+    key_again = {k: res[k] for k in ("key_idx", "key_confidence")}  # the 2-D mesh's
+    ref = outs["unsharded"]
+    worst_1d = check(ref, outs["1-D"], "the 1-D mesh of 2 differs from the unsharded run")
+    key_outputs = ("key_idx", "key_confidence", "key_clarity", "confidence_key_confidence",
+                   "confidence_overall_confidence", "warn_low_key_confidence",
+                   "warn_low_key_clarity")
+    worst_2d = check(ref, outs["2-D"], "the 2-D mesh differs from the unsharded run",
+                     skip=key_outputs)
+    check({k: outs["2-D"][k] for k in key_again}, key_again,
+          "the 2-D mesh's key differs between two runs")
+    clean_2d, _, _ = run("2-D", "clean")
+    n_key_moved = int((outs["2-D"]["key_idx"] != ref["key_idx"]).sum())
+    # kernel D on the 2-D mesh: every 512-frame chunk of both time blocks, of
+    # the base pass and of the escalated rows' hop-256 pass
+    t_pad = padded["adversarial"].shape[1]
+    want_d = sum(2 * -(-(t_pad // 2 // hop) // 512) for hop in (512, 256))
+    gates = {
+        "scales in C on the 2-D mesh": bool((clean_2d["key_idx"][32:] == 0).all()),
+        "escalated on the 2-D mesh": bool(outs["2-D"]["multi_res_used"].any()),
+        "A not launched on the 2-D mesh": launches["2-D"]["polyphase_stage2"] == 0,
+        "D in every time block": launches["2-D"]["fused_novelty_features"] == want_d,
+        "B and C once a tracks shard": launches["2-D"]["downbeat_mask"] == 1
+        and launches["2-D"]["viterbi_decode"] == 1 and launches["1-D"]["downbeat_mask"] == 2,
+        "every kernel launched on the 1-D mesh": all(v > 0 for v in launches["1-D"].values()),
+    }
+    if not all(gates.values()):
+        fail(f"[mesh] gates failed: {gates}; launches {launches}; clean keys "
+             f"{clean_2d['key_idx'].tolist()}")
+
+    # the 2-D key path's extra time: the key detection alone, in time blocks
+    # (the direct DFT) and unsharded (the polyphase form with kernel A)
+    time_mesh = meshes["2-D"].row(0)
+    x, n = padded["adversarial"], lengths
+
+    def key_ms(mesh):
+        detect_key_batch(x, n, cfg, testing.SAMPLE_RATE, mesh=mesh)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        detect_key_batch(x, n, cfg, testing.SAMPLE_RATE, mesh=mesh)
+        sync()
+        return 1e3 * (time.perf_counter() - t0)
+
+    key_2d_ms, key_1_ms = key_ms(time_mesh), key_ms(None)
+    rate = {k: [round(B_REAL / w, 2) for w in v] for k, v in walls.items()}
+    phase("mesh", f"default config, adversarial mix, {B_REAL} x {SECONDS_REAL:.0f} s padded to "
+                  f"{x.shape[1]} samples, on {card} ({n_cards} card(s)): the 1-D mesh of 2 equals "
+                  f"the unsharded run (largest float difference {worst_1d[1]:.3g} in "
+                  f"{worst_1d[0]}); the 2-D (1 x 2) mesh equals it but for the key "
+                  f"({worst_2d[1]:.3g} in {worst_2d[0]}), its key the same in two runs, "
+                  f"{n_key_moved} of {B_REAL} key indices other than the unsharded "
+                  f"polyphase run's; clean mix on the 2-D mesh: scale keys "
+                  f"{clean_2d['key_idx'][32:].tolist()}; launches {launches}; walls (s, cold "
+                  f"then warm) { {k: [round(w, 4) for w in v] for k, v in walls.items()} }, "
+                  f"tracks/s {rate}; key detection alone: time blocks (direct DFT) "
+                  f"{key_2d_ms:.1f} ms, unsharded (polyphase) {key_1_ms:.1f} ms, "
+                  f"{key_2d_ms - key_1_ms:+.1f} ms; gates {gates}")
+    del outs, padded, clean_2d
+
+    # two processes, one tracks axis of 8 kicks
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "stratum_dsp_tpu_torch.parallel.multihost",
+                           "--device", dev.type, "--port", str(free_port())],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0 or "multihost smoke: OK" not in log:
+        fail(f"[mesh] the two-process run failed ({proc.returncode}): {log[-3000:]}")
+    backend = re.findall(r"(?:gloo|nccl) over \S+, \d+ tracks gathered", log)
+    phase("mesh", f"two processes x 4 devices (parallel.multihost --device {dev.type}): "
+                  f"multihost smoke OK in {time.perf_counter() - t0:.1f} s ({backend})")
+    phase("mesh", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_mesh_1d": launches["1-D"], "launches_mesh_2d": launches["2-D"],
+            "walls": walls, "key_2d_extra_ms": key_2d_ms - key_1_ms}
 
 
 def main() -> int:
@@ -848,6 +1014,9 @@ def main() -> int:
              f"{[(r.get('bpm'), r.get('key'), r.get('beat_count'), r.get('error')) for r in recs]}"
              f"; in memory {[(m.bpm, m.key.name(), len(m.beat_grid.beats)) for m in in_memory]}")
 
+    mesh_stats = mesh_phase(port, card, batches, lengths, dev)
+    del batches, adversarial, clean
+    torch.cuda.empty_cache()
     battery_s, battery_launches = battery_phase(port, card)
 
     def entry(name, source, replaces, err, ms, plain_ms, bound):
@@ -860,6 +1029,8 @@ def main() -> int:
                 "replaces": f"stratum_dsp_tpu/ops/{replaces}",
                 "launches": main_launches[name], "launches_files": file_launches[name],
                 "launches_battery": battery_launches[name],
+                "launches_mesh_1d": mesh_stats["launches_mesh_1d"][name],
+                "launches_mesh_2d": mesh_stats["launches_mesh_2d"][name],
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
                 "bound_by": bound["bound_by"], "share_of_bound": bound["bound_ms"] / ms,

@@ -13,8 +13,9 @@ plain PyTorch version that CPU tensors take.
 
 This package imports ``torch``, never ``jax`` and nothing of the JAX
 package. It runs every ``AnalysisConfig`` the JAX package runs
-(``SLICE_CONFIG`` is the default with the multi-resolution escalation off);
-only a ``mesh`` raises ``NotImplementedError``.
+(``SLICE_CONFIG`` is the default with the multi-resolution escalation off),
+on one device or sharded over a mesh of devices (``parallel/``: the tracks
+axis, the (tracks, time) axis with halo exchange, several processes).
 """
 
 from .config import DEFAULT_CONFIG, AnalysisConfig, NormalizationMethod, TemplateSet

@@ -6,8 +6,8 @@ BPM selection (tempogram, fused with or forced to the legacy estimate) ->
 beat grid -> key -> warnings and confidence, over a padded ``[B, T]`` batch.
 
 Every ``AnalysisConfig`` runs (``SLICE_CONFIG`` is the default with the
-multi-resolution escalation off), every stage on ``device``; only a ``mesh``
-raises ``NotImplementedError``.
+multi-resolution escalation off), every stage on ``device``, or sharded over
+the devices of a ``parallel.mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -99,12 +99,69 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     With ``cfg.emit_tempogram_candidates`` or ``cfg.debug_track_id`` the dict
     also holds the chosen estimate's candidate table (``cand_*`` [B, k]), and
     with ``cfg.debug_track_id`` the ambiguity gate's signals (``dbg_*`` [B])
-    that ``debug.format_debug_dump`` prints."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-device sharding is not ported")
+    that ``debug.format_debug_dump`` prints.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; ``device`` is then its first device
+    or None): the batch is cut into one shard a row of the mesh's
+    ``tracks`` axis, B divisible by its size, each shard on its row's first
+    device. With a ``time`` axis every sample-domain frontend (silence RMS,
+    onset RMS, the BPM, hop-256 and key STFTs) runs in time blocks over the
+    row's devices (``parallel.timeblocks``), T divisible by n_time * 1024
+    (``parallel.mesh.pad_batch_for_mesh``); normalization, the trim shift and
+    the HPSS spectrogram run on the whole rows. The result lies on the
+    mesh's first device."""
     if debug_stop_after not in STAGES:
         raise ValueError(f"debug_stop_after must be one of {STAGES}, got {debug_stop_after!r}")
+    if mesh is not None:
+        return _analyze_on_mesh(samples, lengths, cfg, sample_rate, caps, debug_stop_after, mesh,
+                                device)
     device = _batch_device(samples, lengths, device)
+    return _analyze(samples.to(device), lengths.to(device), cfg, sample_rate, caps,
+                    debug_stop_after, None, samples.shape[0])
+
+
+def _analyze_on_mesh(samples, lengths, cfg: AnalysisConfig, sample_rate: int, caps: PipelineCaps,
+                     debug_stop_after: str, mesh, device) -> Dict[str, torch.Tensor]:
+    """``analyze_batch_arrays`` over a mesh: one tracks shard a mesh row, each
+    on the row's first device (in one host thread each where those devices
+    are distinct CUDA devices), its chunk sizes those of the whole batch."""
+    from ..parallel.mesh import TIME_QUANTUM, Mesh, check_tracks_split, map_on_devices
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    grid = mesh.grid()
+    home = grid[0, 0]
+    if device is not None and torch.device(device) != home:
+        raise ValueError(f"analyze_batch: device {device} is not the mesh's first device {home}")
+    on_mesh = {str(d) for d in grid.flat}
+    for x in (samples, lengths):
+        if x.device.type != "cpu" and str(x.device) not in on_mesh:
+            raise ValueError(f"analyze_batch: an input lies on {x.device}, which is not a "
+                             "device of the mesh")
+    b, t = samples.shape
+    bl = check_tracks_split(b, mesh)
+    n_time = mesh.shape.get("time", 1)
+    if n_time > 1 and t % (n_time * TIME_QUANTUM):
+        raise ValueError(f"a time axis of {n_time} needs T divisible by {n_time * TIME_QUANTUM}, "
+                         f"got {t}: pad with parallel.mesh.pad_batch_for_mesh")
+
+    def run(i):
+        dev = grid[i, 0]
+        rows = slice(i * bl, (i + 1) * bl)
+        return _analyze(samples[rows].to(dev), lengths[rows].to(dev), cfg, sample_rate, caps,
+                        debug_stop_after, mesh.row(i) if n_time > 1 else None, b)
+
+    outs = map_on_devices(run, list(range(grid.shape[0])), list(grid[:, 0]))
+    return {k: torch.cat([o[k].to(home) for o in outs]) for k in outs[0]}
+
+
+def _analyze(samples, lengths, cfg: AnalysisConfig, sample_rate: int, caps: PipelineCaps,
+             debug_stop_after: str, time_mesh, chunk_batch: int) -> Dict[str, torch.Tensor]:
+    """The pipeline on the device the batch lies on. ``time_mesh``: a
+    ``(1, n_time)`` mesh whose devices run the time blocks, or None;
+    ``chunk_batch``: the batch size the key and BPM chunk sizes are sized
+    for (the whole batch's, as one SPMD program sees it)."""
+    device = samples.device
     if device.type == "cuda":
         # f32 matmuls stay f32 (the reference's band sums are f32-exact);
         # these switches are process-wide in PyTorch
@@ -121,16 +178,23 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     trim_start = torch.zeros_like(lengths)
     if cfg.enable_silence_trimming:
         samples, lengths, sil = detect_and_trim(samples, lengths, sample_rate,
-                                                cfg.min_amplitude_db, frame_size=cfg.frame_size)
+                                                cfg.min_amplitude_db, frame_size=cfg.frame_size,
+                                                mesh=time_mesh)
         track_ok = track_ok & ~sil["all_silent"]
         trim_start = sil["trim_start"]
     duration_s = cdiv(lengths.to(torch.float32), sample_rate)
 
     e_pos, e_valid = detect_energy_flux_onsets(samples, lengths, cfg.frame_size, cfg.hop_size,
-                                               -20.0, caps.max_onsets)
-    feats, frame_counts, _ = nov.compute_bpm_spectral_features(
-        samples, lengths, cfg, sample_rate, cfg.frame_size, cfg.hop_size,
-        chunk_frames=caps.chunk_frames)
+                                               -20.0, caps.max_onsets, mesh=time_mesh)
+    if time_mesh is not None:
+        from ..parallel.timeblocks import compute_bpm_spectral_features_sharded
+
+        feats, frame_counts, _ = compute_bpm_spectral_features_sharded(
+            samples, lengths, cfg, sample_rate, cfg.frame_size, cfg.hop_size, time_mesh)
+    else:
+        feats, frame_counts, _ = nov.compute_bpm_spectral_features(
+            samples, lengths, cfg, sample_rate, cfg.frame_size, cfg.hop_size,
+            chunk_frames=caps.chunk_frames, chunk_batch=chunk_batch)
     curves, nov_mask, n_valid = nov.assemble_novelty_curves(feats, frame_counts, cfg)
     frame_rate = sample_rate / cfg.hop_size
 
@@ -195,7 +259,7 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     mr_used = torch.zeros_like(ambiguous)
     if cfg.enable_tempogram_multi_resolution:
         mres = _escalate(samples, lengths, mr_triggered, cfg, sample_rate, base, feats,
-                         frame_counts, curves["full"], n_valid)
+                         frame_counts, curves["full"], n_valid, time_mesh)
         if mres is not None:
             rel = torch.where(
                 chosen_bpm > EPSILON,
@@ -296,9 +360,10 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     # key (lib.rs:961-1559)
     if cfg.enable_key_beat_synchronous:
         key = detect_key_batch(samples, lengths, cfg, sample_rate, grid.beat_times,
-                               grid.beat_valid)
+                               grid.beat_valid, mesh=time_mesh, chunk_batch=chunk_batch)
     else:
-        key = detect_key_batch(samples, lengths, cfg, sample_rate)
+        key = detect_key_batch(samples, lengths, cfg, sample_rate, mesh=time_mesh,
+                               chunk_batch=chunk_batch)
     key_ok = track_ok & (lengths >= cfg.frame_size)
     key_idx = torch.where(key_ok, key.key_idx, 0)
     key_confidence = torch.where(key_ok, key.confidence, 0.0)
@@ -359,7 +424,7 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
 
 
 def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base, feats,
-              frame_counts, novelty_full, n_valid):
+              frame_counts, novelty_full, n_valid, mesh=None):
     """The multi-resolution estimate of the escalated tracks ``esc [B]``
     scattered into batch-sized arrays (zeros, ``ok`` False elsewhere), or
     None when no track escalates.
@@ -368,7 +433,9 @@ def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base
     the sub-batch keeps the batch's T, so its curve lengths and FFT sizes
     are those of the full batch. The base pass is the hop-512 pass when
     ``cfg.hop_size`` is 512: its estimate, features and novelty go along and
-    only the hop-256 STFT runs anew."""
+    only the hop-256 STFT runs anew, in time blocks under a ``mesh`` with a
+    time axis. (The JAX package runs the whole batch there; each row's result
+    is the same, since the sub-batch keeps T.)"""
     idx = torch.nonzero(esc).squeeze(1)
     if idx.numel() == 0:
         return None
@@ -384,7 +451,7 @@ def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base
             "n_valid": take(n_valid),
         }
     sub = mr.multi_resolution_estimate(take(samples), take(lengths), cfg, sample_rate,
-                                       precomputed)
+                                       precomputed, mesh=mesh)
     return {k: torch.zeros((esc.shape[0],) + v.shape[1:], dtype=v.dtype,
                            device=v.device).index_copy_(0, idx, v)
             for k, v in sub.items()}

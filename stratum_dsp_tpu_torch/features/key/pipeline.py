@@ -76,16 +76,42 @@ def _condition_chunk(spec, fvalid, cfg: AnalysisConfig):
 
 
 def _stream_key_stft(samples, lengths, cfg: AnalysisConfig, sample_rate: int, reducer,
-                     halo: int, chunk_frames: int):
+                     halo: int, chunk_frames: int, mesh):
+    """The key STFT streamed through ``reducer``: in time blocks under a
+    ``(tracks, time)`` mesh, where it is the direct windowed DFT (a
+    symmetric Hann, as the JAX package's time-sharded path computes it),
+    else by ``stft_reduce`` (the polyphase form under bf16)."""
     frame_size, hop = _key_stft_params(cfg)
-    return stft_reduce(
-        samples, lengths, frame_size, hop, reducer, lambda b: None,
-        chunk_frames=_auto_chunk(samples.shape[0], frame_size, chunk_frames), halo=halo,
-        keep_bins=_key_keep_bins(cfg, sample_rate, frame_size), bf16=cfg.stft_bf16)
+    chunk = _auto_chunk(samples.shape[0], frame_size, chunk_frames)
+    keep_bins = _key_keep_bins(cfg, sample_rate, frame_size)
+    if mesh is not None and "time" in mesh.shape:
+        from ...parallel.timeblocks import stft_reduce_sharded
+
+        return stft_reduce_sharded(samples, lengths, frame_size, hop, reducer, lambda b: None,
+                                   mesh, prev_frames=0, halo_frames=halo, keep_bins=keep_bins,
+                                   chunk_frames=chunk, bf16=cfg.stft_bf16)
+    return stft_reduce(samples, lengths, frame_size, hop, reducer, lambda b: None,
+                       chunk_frames=chunk, halo=halo, keep_bins=keep_bins, bf16=cfg.stft_bf16)
+
+
+def _device_copies(**tensors):
+    """A getter of ``tensors`` (tensors or other values) copied once to each
+    device: the reducers' constants, where time blocks of the key STFT lie
+    on other devices than the batch."""
+    copies = {}
+
+    def on(device):
+        key = str(device)
+        if key not in copies:
+            copies[key] = {k: v.to(device) if torch.is_tensor(v) else v
+                           for k, v in tensors.items()}
+        return copies[key]
+
+    return on
 
 
 def estimate_tuning_streamed(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
-                             chunk_frames: int = 512) -> torch.Tensor:
+                             chunk_frames: int = 512, mesh=None) -> torch.Tensor:
     """Tuning estimate over the conditioned key spectrogram, streamed
     (lib.rs:1090-1110): partial circular sums per chunk, combined at the end.
     Returns per-track offsets [B] clamped to +-key_tuning_max_abs_semitones."""
@@ -96,25 +122,27 @@ def estimate_tuning_streamed(samples, lengths, cfg: AnalysisConfig, sample_rate:
     dev = samples.device
     freqs = chx.bin_freqs(sample_rate, frame_size, n_bins)
     fmin, fmax = 80.0, float(np.clip(2000.0, 81.0, sample_rate / 2))
-    in_band = torch.as_tensor((freqs >= fmin) & (freqs <= fmax), device=dev)
     r_sin, r_cos = chx.tuning_residual_sin_cos(sample_rate, frame_size, n_bins, dev)
+    consts = _device_copies(in_band=torch.as_tensor((freqs >= fmin) & (freqs <= fmax), device=dev),
+                            r_sin=r_sin, r_cos=r_cos)
     step = max(cfg.key_tuning_frame_step, 1)
     thr_rel = float(np.clip(cfg.key_tuning_peak_rel_threshold, 0.0, 1.0))
 
     def reducer(spec, fidx, fvalid, carry):
+        k = consts(spec.device)
         cond = _condition_chunk(spec, fvalid, cfg)
         c = spec.shape[1] - 2 * halo
         central = cond[:, halo:halo + c, :].clamp_min(0.0)
         use_frame = fvalid[:, halo:halo + c] & ((fidx[halo:halo + c] % step) == 0)[None, :]
-        x = central * in_band
+        x = central * k["in_band"]
         peak = x.amax(dim=-1, keepdim=True)
-        sel = use_frame[..., None] & (x >= peak * thr_rel) & (peak > 1e-12) & in_band
+        sel = use_frame[..., None] & (x >= peak * thr_rel) & (peak > 1e-12) & k["in_band"]
         w = torch.where(sel, torch.sqrt(x), 0.0).to(torch.float32)
-        return {"sin": (w * r_sin).sum(dim=-1), "cos": (w * r_cos).sum(dim=-1),
+        return {"sin": (w * k["r_sin"]).sum(dim=-1), "cos": (w * k["r_cos"]).sum(dim=-1),
                 "w": w.sum(dim=-1)}, carry
 
     outs, _, _ = _stream_key_stft(samples, lengths, cfg, sample_rate, reducer, halo,
-                                  chunk_frames)
+                                  chunk_frames, mesh)
     delta = chx.circular_mean_offset(outs["sin"].sum(dim=-1), outs["cos"].sum(dim=-1),
                                      outs["w"].sum(dim=-1))
     m = abs(cfg.key_tuning_max_abs_semitones)
@@ -133,7 +161,7 @@ class HpssMask:
 
 
 def collect_hpss_mask(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
-                      chunk_frames: int = 512) -> HpssMask:
+                      chunk_frames: int = 512, mesh=None) -> HpssMask:
     """First pass of the key HPSS median-mask path (extractor.rs:1369-1501):
     collect the band-limited spectrogram, downsample it in time and compute
     the harmonic soft mask on it."""
@@ -153,7 +181,7 @@ def collect_hpss_mask(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
         return {"band": torch.where(fvalid[:, keep, None], band, 0.0)}, carry
 
     outs, _, frame_counts = _stream_key_stft(samples, lengths, cfg, sample_rate, reducer, 0,
-                                             chunk_frames)
+                                             chunk_frames, mesh)
     ds_counts = -(-frame_counts // step)  # frames 0, step, 2 step, ...
     mask_ds = chx.hpss_median_mask_downsampled(
         outs["band"], ds_counts, cfg.key_hpss_time_margin, cfg.key_hpss_freq_margin,
@@ -172,7 +200,7 @@ def _hpcp(central, cfg: AnalysisConfig, sample_rate: int, frame_size: int, tunin
 
 def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
                          tuning_offset=0.0, hpss_mask: HpssMask = None,
-                         chunk_frames: int = 512):
+                         chunk_frames: int = 512, mesh=None):
     """Stream the key STFT; returns (chroma [B, F, 12], energy [B, F],
     frame_counts [B]). ``tuning_offset`` is a float or per-track offsets [B];
     ``hpss_mask`` is the mask of ``collect_hpss_mask`` for the HPSS path."""
@@ -181,6 +209,7 @@ def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int
     halo = _key_halo(cfg)
     dev = samples.device
     per_track_tuning = torch.is_tensor(tuning_offset)
+    proj = log_proj = fold_m = None
 
     if cfg.enable_key_log_frequency:
         lproj, s_min = chx.log_frequency_projection(sample_rate, frame_size, 100.0, 5000.0)
@@ -196,8 +225,13 @@ def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int
                 float(tuning_offset)), device=dev)
         if keep_bins is not None:
             proj = proj[..., :keep_bins, :]
+    consts = _device_copies(proj=proj, log_proj=log_proj, fold_m=fold_m,
+                            tuning=tuning_offset,
+                            mask_ds=hpss_mask.mask_ds if hpss_mask is not None else None)
 
     def reducer(spec, fidx, fvalid, carry):
+        k = consts(spec.device)
+        tuning = k["tuning"]
         cond = _condition_chunk(spec, fvalid, cfg)
         c = spec.shape[1] - 2 * halo
         central_valid = fvalid[:, halo:halo + c]
@@ -206,29 +240,29 @@ def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int
         if hpss_mask is not None:
             # the downsampled harmonic mask; bins outside its band are zeroed
             # (extractor.rs:1478-1498)
-            k_idx = (fidx[halo:halo + c] // hpss_mask.step).clamp(0, hpss_mask.mask_ds.shape[1] - 1)
-            full_m = torch.zeros(central.shape, dtype=torch.float32, device=dev)
-            full_m[..., hpss_mask.bin_start:hpss_mask.bin_end] = hpss_mask.mask_ds[:, k_idx]
+            k_idx = (fidx[halo:halo + c] // hpss_mask.step).clamp(0, k["mask_ds"].shape[1] - 1)
+            full_m = torch.zeros(central.shape, dtype=torch.float32, device=spec.device)
+            full_m[..., hpss_mask.bin_start:hpss_mask.bin_end] = k["mask_ds"][:, k_idx]
             central = central.clamp_min(0.0) * full_m
 
         if cfg.enable_key_log_frequency:
-            logspec = torch.matmul(central.to(torch.float32), log_proj)
-            ch = torch.matmul(logspec, fold_m)
+            logspec = torch.matmul(central.to(torch.float32), k["log_proj"])
+            ch = torch.matmul(logspec, k["fold_m"])
             ch = torch.where(logspec.sum(dim=-1, keepdim=True) > 0, l2_normalize_zero(ch), 0.0)
             energy = (logspec * logspec).sum(dim=-1)
         else:
             if not cfg.enable_key_hpcp:
-                ch = chx.frames_to_chroma(central, proj)
+                ch = chx.frames_to_chroma(central, k["proj"])
             elif cfg.enable_key_hpcp_bass_blend:
-                full = _hpcp(central, cfg, sample_rate, frame_size, tuning_offset,
+                full = _hpcp(central, cfg, sample_rate, frame_size, tuning,
                              cfg.key_hpcp_peaks_per_frame)
-                bass = _hpcp(central, cfg, sample_rate, frame_size, tuning_offset,
+                bass = _hpcp(central, cfg, sample_rate, frame_size, tuning,
                              int(np.clip(cfg.key_hpcp_peaks_per_frame, 1, 12)),
                              fmin_hz=cfg.key_hpcp_bass_fmin_hz, fmax_hz=cfg.key_hpcp_bass_fmax_hz)
                 w = float(np.clip(cfg.key_hpcp_bass_weight, 0.0, 1.0))
                 ch = l2_normalize_zero((1.0 - w) * full + w * bass)
             else:
-                ch = _hpcp(central, cfg, sample_rate, frame_size, tuning_offset,
+                ch = _hpcp(central, cfg, sample_rate, frame_size, tuning,
                            cfg.key_hpcp_peaks_per_frame)
             ce = central.to(torch.float32)
             energy = (ce * ce).sum(dim=-1)
@@ -236,7 +270,7 @@ def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int
                 "energy": torch.where(central_valid, energy, 0.0)}, carry
 
     outs, _, frame_counts = _stream_key_stft(samples, lengths, cfg, sample_rate, reducer, halo,
-                                             chunk_frames)
+                                             chunk_frames, mesh)
     return outs["chroma"], outs["energy"], frame_counts
 
 
@@ -276,22 +310,29 @@ def _shift_frames(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
 
 
 def detect_key_batch(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
-                     beat_times=None, beat_valid=None) -> KeyResult:
+                     beat_times=None, beat_valid=None, mesh=None, *,
+                     chunk_batch=None) -> KeyResult:
     """Key path for a batch (lib.rs:961-1559): the optional tuning, HPSS and
     beat-synchronous pre-passes, extract and condition, sharpen, median-smooth,
-    weight, then the configured detector."""
+    weight, then the configured detector. ``mesh``: every key STFT pass in
+    time blocks (``_stream_key_stft``); ``chunk_batch``: the batch its
+    chunks are sized for (default: this one; a tracks shard passes the whole
+    batch's size, whose chunk is never larger than its own)."""
+    b = chunk_batch if chunk_batch is not None else samples.shape[0]
+    stream = dict(mesh=mesh, chunk_frames=_auto_chunk(b, _key_stft_params(cfg)[0], 512))
     tuning = 0.0
     if cfg.enable_key_tuning_compensation and not cfg.enable_key_log_frequency:
-        tuning = estimate_tuning_streamed(samples, lengths, cfg, sample_rate)
+        tuning = estimate_tuning_streamed(samples, lengths, cfg, sample_rate, **stream)
     hpss_mask = None
     if cfg.enable_key_hpss_harmonic:
-        hpss_mask = collect_hpss_mask(samples, lengths, cfg, sample_rate)
+        hpss_mask = collect_hpss_mask(samples, lengths, cfg, sample_rate, **stream)
 
     if (cfg.enable_key_beat_synchronous and not cfg.enable_key_log_frequency
             and beat_times is not None):
         # per-frame plain chroma, not HPCP (extractor.rs:884-891)
         fchroma, fenergy, frame_counts = extract_key_features(
-            samples, lengths, cfg.replace(enable_key_hpcp=False), sample_rate, tuning, hpss_mask)
+            samples, lengths, cfg.replace(enable_key_hpcp=False), sample_rate, tuning, hpss_mask,
+            **stream)
         frame_rate = sample_rate / _key_stft_params(cfg)[1]
         fval = masked.length_mask(frame_counts, fchroma.shape[1])
         chroma, energy, interval_valid = chx.beat_synchronous_chroma(
@@ -303,7 +344,7 @@ def detect_key_batch(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
         energy = torch.gather(energy, 1, order)
     else:
         chroma, energy, frame_counts = extract_key_features(samples, lengths, cfg, sample_rate,
-                                                            tuning, hpss_mask)
+                                                            tuning, hpss_mask, **stream)
     f = chroma.shape[1]
     fvalid = masked.length_mask(frame_counts, f)
     if cfg.chroma_sharpening_power > 1.0:

@@ -15,10 +15,19 @@ EPSILON = 1e-10
 
 
 def detect_energy_flux_onsets(samples: torch.Tensor, lengths: torch.Tensor, frame_size: int,
-                              hop: int, threshold_db: float, max_onsets: int):
+                              hop: int, threshold_db: float, max_onsets: int, mesh=None):
     """Onsets as ``(positions [B, K] samples, valid [B, K])``: flux index i
-    (frame i -> i+1) maps to sample (i+1)*hop, kept inside the track."""
-    rms = frame_rms(samples, lengths, frame_size, hop)
+    (frame i -> i+1) maps to sample (i+1)*hop, kept inside the track.
+
+    With a ``(tracks, time)`` ``mesh`` the frame RMS runs in time blocks
+    (``parallel.timeblocks``); the flux and peak logic runs on the gathered
+    ``[B, NF]`` curve."""
+    if mesh is not None and "time" in mesh.shape:
+        from ...parallel.timeblocks import frame_rms_sharded
+
+        rms, _ = frame_rms_sharded(samples, lengths, frame_size, hop, mesh)
+    else:
+        rms = frame_rms(samples, lengths, frame_size, hop)
     n_frames = torch.where(lengths >= frame_size, (lengths - frame_size) // hop + 1, 0)
     nf = rms.shape[1]
     flux = (rms[:, 1:] - rms[:, :-1]).clamp_min(0.0)

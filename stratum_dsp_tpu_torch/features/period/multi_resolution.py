@@ -49,13 +49,21 @@ def _estimate(feats, frame_counts, cfg: AnalysisConfig, frame_rate: float, top_n
 
 
 def hop_candidates(samples, lengths, cfg: AnalysisConfig, sample_rate: int, hop: int,
-                   top_n: int):
+                   top_n: int, mesh=None):
     """One hop's tempogram estimate (with its candidate list), full-band
     novelty curve and valid counts. An auxiliary pass: no stride-2 SuperFlux
-    and no onset flux."""
-    feats, frame_counts, _ = nov.compute_bpm_spectral_features(
-        samples, lengths, cfg, sample_rate, cfg.frame_size, hop, chunk_frames=256,
-        emit_stride2=False, emit_onset_flux=False)
+    and no onset flux. With a ``(tracks, time)`` ``mesh`` the STFT runs in
+    time blocks (``parallel.timeblocks``, 512-frame chunks)."""
+    if mesh is not None and "time" in mesh.shape:
+        from ...parallel.timeblocks import compute_bpm_spectral_features_sharded
+
+        feats, frame_counts, _ = compute_bpm_spectral_features_sharded(
+            samples, lengths, cfg, sample_rate, cfg.frame_size, hop, mesh,
+            emit_stride2=False, emit_onset_flux=False)
+    else:
+        feats, frame_counts, _ = nov.compute_bpm_spectral_features(
+            samples, lengths, cfg, sample_rate, cfg.frame_size, hop, chunk_frames=256,
+            emit_stride2=False, emit_onset_flux=False)
     est, curves, n_valid = _estimate(feats, frame_counts, cfg, sample_rate / hop, top_n)
     return est, curves["full"], n_valid
 
@@ -180,7 +188,8 @@ def _prior(bpm, score):
 
 
 def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
-                              precomputed: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+                              precomputed: Optional[Dict] = None,
+                              mesh=None) -> Dict[str, torch.Tensor]:
     """The multi-resolution pass: bpm / confidence / method_agreement / ok
     [B] for ``samples [B, T]``, and the hop-512 candidate arrays ``cand_*``
     [B, top_k] with ``cand_selected`` marked against the pass's own BPM.
@@ -189,7 +198,8 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
     ``est`` (its estimate, score-ordered candidates at least top_k wide),
     ``feats`` and ``frame_counts`` (its streamed features, with the stride-2
     SuperFlux), ``novelty_full`` and ``n_valid``. Without it the hop-512 and
-    hop-1024 passes are recomputed from the samples."""
+    hop-1024 passes are recomputed from the samples. ``mesh``: each pass's
+    STFT in time blocks (see ``hop_candidates``)."""
     top_k = max(cfg.tempogram_multi_res_top_k, 1)
     aux_k = int(np.clip(top_k * 4, 25, 200))
     tol = max(2.0, cfg.bpm_resolution)
@@ -199,7 +209,7 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
     margin_threshold = cfg.tempogram_multi_res_margin_threshold
     dev = samples.device
 
-    c256, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 256, aux_k)
+    c256, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 256, aux_k, mesh=mesh)
     if precomputed is not None:
         c512 = {k: precomputed["est"][k][:, :top_k] for k in CAND_KEYS}
         nov512, nval512 = precomputed["novelty_full"], precomputed["n_valid"]
@@ -208,8 +218,9 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
         feats1024["band_names"] = nov.active_band_names(cfg, sample_rate, cfg.frame_size)
         c1024, _, _ = _estimate(feats1024, fc1024, cfg, sample_rate / 1024, aux_k)
     else:
-        c512, nov512, nval512 = hop_candidates(samples, lengths, cfg, sample_rate, 512, top_k)
-        c1024, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 1024, aux_k)
+        c512, nov512, nval512 = hop_candidates(samples, lengths, cfg, sample_rate, 512, top_k,
+                                               mesh=mesh)
+        c1024, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 1024, aux_k, mesh=mesh)
 
     def sup(c, q):
         return tg.cand_lookup_nearest(c["cand_bpm"], c["cand_score"], c["cand_valid"], q, tol)

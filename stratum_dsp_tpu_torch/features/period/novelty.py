@@ -105,10 +105,13 @@ def make_bpm_reducer(cfg: AnalysisConfig, sample_rate: int, frame_size: int, dev
 
 def compute_bpm_spectral_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
                                   frame_size: int, hop: int, chunk_frames: int = 512,
-                                  emit_stride2=None, emit_onset_flux: bool = True):
-    """Stream the BPM STFT; returns (features, frame_counts [B], n_frames_padded)."""
-    chunk_frames = int(min(chunk_frames,
-                           max(60_000_000 // max(samples.shape[0] * frame_size, 1), 128)))
+                                  emit_stride2=None, emit_onset_flux: bool = True, *,
+                                  chunk_batch=None):
+    """Stream the BPM STFT; returns (features, frame_counts [B], n_frames_padded).
+    The chunk is capped for the batch ``chunk_batch`` (default: this one; a
+    tracks shard passes the whole batch's size)."""
+    b = chunk_batch if chunk_batch is not None else samples.shape[0]
+    chunk_frames = int(min(chunk_frames, max(60_000_000 // max(b * frame_size, 1), 128)))
     reducer, carry_init, band_names = make_bpm_reducer(
         cfg, sample_rate, frame_size, samples.device, emit_stride2=emit_stride2,
         emit_onset_flux=emit_onset_flux)

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -113,6 +114,16 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: the shards of a mesh
+    on distinct cards launch from one host thread each."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check(rc: int, name: str) -> None:

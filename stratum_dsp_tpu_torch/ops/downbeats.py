@@ -88,7 +88,7 @@ def downbeat_mask(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor)
         rc = lib.stratum_downbeat_mask(times.data_ptr(), nb.data_ptr(), bar.data_ptr(),
                                        out.data_ptr(), b, n, stream)
     cuda_build.check(rc, "downbeat_mask")
-    downbeat_mask.launches += 1
+    cuda_build.count_launch(downbeat_mask)
     return out
 
 

@@ -13,7 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .masked import scan_sum, tree_sum
+from .masked import scan_sum, sqrt_f32, tree_sum
 
 
 def block_prefix_sumsq(samples: torch.Tensor, blk: int) -> torch.Tensor:
@@ -46,4 +46,4 @@ def frame_rms(samples: torch.Tensor, lengths: torch.Tensor, frame_size: int, hop
     starts = torch.arange(nf, device=samples.device) * hop
     ends = torch.minimum(starts[None, :] + frame_size, lengths.clamp_min(1)[:, None])
     ends = torch.maximum(ends, starts[None, :] + 1)
-    return torch.sqrt(sums.clamp_min(0.0) / (ends - starts[None, :]).to(sums.dtype))
+    return sqrt_f32(sums.clamp_min(0.0) / (ends - starts[None, :]).to(sums.dtype))

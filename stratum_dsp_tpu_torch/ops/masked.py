@@ -95,6 +95,13 @@ def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return _sequential_sum(x)
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The f32 square root rounded as IEEE rounds it, as XLA and CUDA do:
+    PyTorch's CPU kernel is one ulp off on ~0.7% of inputs, so the root is
+    taken in f64 and rounded once."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def length_mask(n: torch.Tensor, size: int) -> torch.Tensor:
     """Boolean mask [..., size] that is True for indices < n."""
     return torch.arange(size, device=n.device) < n[..., None]

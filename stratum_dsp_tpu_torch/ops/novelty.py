@@ -323,7 +323,7 @@ def fused_novelty_features(spec: torch.Tensor, prev2: torch.Tensor, tables: Nove
             tables.nm, n_edge, n_task, n_rounds, n_pack, tables.sf_k, FRAME_TILE, BLOCK_THREADS,
             flags, stream)
     cuda_build.check(rc, "fused_novelty_features")
-    fused_novelty_features.launches += 1
+    cuda_build.count_launch(fused_novelty_features)
     return out
 
 

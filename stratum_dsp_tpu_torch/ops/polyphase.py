@@ -135,7 +135,7 @@ def polyphase_stage2(bd: torch.Tensor, r: int, ext: int, keep_bins: int) -> torc
         rc = lib.stratum_polyphase_stage2(bd.data_ptr(), tables.data_ptr(), out.data_ptr(),
                                           b, ebp, kp, r, ext, keep_bins, FRAME_TILE, stream)
     cuda_build.check(rc, "polyphase_stage2")
-    polyphase_stage2.launches += 1
+    cuda_build.count_launch(polyphase_stage2)
     return out
 
 

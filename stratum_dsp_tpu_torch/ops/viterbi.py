@@ -135,7 +135,7 @@ def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
         rc = lib.stratum_viterbi_decode(emissions.data_ptr(), trans.data_ptr(),
                                         states.data_ptr(), b, t, stream)
     cuda_build.check(rc, "viterbi_decode")
-    viterbi_decode.launches += 1
+    cuda_build.count_launch(viterbi_decode)
     return states
 
 

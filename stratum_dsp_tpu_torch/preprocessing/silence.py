@@ -15,17 +15,26 @@ from ..ops.framesum import frame_rms
 
 
 def detect_and_trim(samples: torch.Tensor, lengths: torch.Tensor, sample_rate: int,
-                    threshold_db: float = -40.0, frame_size: int = 2048):
+                    threshold_db: float = -40.0, frame_size: int = 2048, mesh=None):
     """Trim leading/trailing silence. Returns (samples [B, T], new_lengths
     [B], info) with info ``trim_start``, ``trim_end``, ``all_silent``.
 
     A frame is silent iff its RMS <= 10^(dB/20); trim_start is the start of
     the first loud frame when the track opens silent, trim_end the start of
     the trailing silent run; an all-silent track gets length 0.
+
+    With a ``(tracks, time)`` ``mesh`` the frame RMS runs in time blocks
+    (``parallel.timeblocks``, ``T // hop`` frames); the trim shift runs on
+    the whole rows.
     """
     b, t = samples.shape
-    hop = frame_size // 2
-    rms = frame_rms(samples, lengths, frame_size, hop)  # 50% overlap
+    hop = frame_size // 2  # 50% overlap
+    if mesh is not None and "time" in mesh.shape:
+        from ..parallel.timeblocks import frame_rms_sharded
+
+        rms, _ = frame_rms_sharded(samples, lengths, frame_size, hop, mesh)
+    else:
+        rms = frame_rms(samples, lengths, frame_size, hop)
     n_frames = torch.where(lengths >= frame_size, (lengths - frame_size) // hop + 1,
                            lengths.clamp_max(1))
     nf = rms.shape[1]

@@ -32,11 +32,17 @@ PORT_ONLY = {"analyze_batch": {"device", "debug_stop_after"},
              "stage_timings": {"device"}}
 
 # JAX subpackages whose __init__ exports names, and the port's twins.
-# Left out: ``parallel`` (the multi-device mesh; the port runs one device
-# and raises on a mesh), ``ml`` (placeholders that raise; not ported) and
-# the root package (its names are held by tests/test_torch_config.py).
+# Left out: ``ml`` (placeholders that raise; not ported) and the root
+# package (its names are held by tests/test_torch_config.py).
 SUBPACKAGES = ("analysis", "features", "features.beat", "features.chroma", "features.key",
-               "features.onset", "features.period", "io", "ops", "preprocessing", "testing")
+               "features.onset", "features.period", "io", "ops", "parallel", "preprocessing",
+               "testing")
+# The scale-out's functions (``parallel/mesh.py``, ``parallel/timeblocks.py``):
+# the JAX parameters in the JAX order, kinds and defaults, and no other
+PARALLEL_FUNCTIONS = ("mesh.make_mesh", "mesh.pad_batch_for_mesh", "mesh.analyze_batch_sharded",
+                      "timeblocks.stft_reduce_sharded", "timeblocks.frame_rms_sharded",
+                      "timeblocks.compute_bpm_spectral_features_sharded",
+                      "timeblocks.pad_to_time_multiple")
 # Names whose JAX form is a Pallas kernel: the listed __init__s export none
 # (the ``ops/*_pallas.py`` modules are imported where they are used, and
 # their port counterparts are the kernel wrappers in ``ops/``)
@@ -66,6 +72,19 @@ def test_entry_points_take_the_jax_parameters(name):
         if p.name in PORT_ONLY[name]:
             assert p.kind == inspect.Parameter.KEYWORD_ONLY, (name, p.name)
     assert {p.name for p in got.values()} - set(want) == PORT_ONLY[name]
+
+
+@pytest.mark.parametrize("name", PARALLEL_FUNCTIONS)
+def test_parallel_functions_take_the_jax_parameters(name):
+    module, fn = name.split(".")
+    want = inspect.signature(getattr(importlib.import_module(f"stratum_dsp_tpu.parallel.{module}"),
+                                     fn)).parameters
+    got = inspect.signature(getattr(importlib.import_module(
+        f"stratum_dsp_tpu_torch.parallel.{module}"), fn)).parameters
+    assert list(got) == list(want), name
+    for p in got.values():
+        assert p.kind == want[p.name].kind, (name, p.name)
+        assert p.default == want[p.name].default, (name, p.name)
 
 
 def test_jit_and_perturb_are_accepted_in_their_places():
@@ -128,7 +147,7 @@ def test_every_jax_subpackage_is_listed_or_left_out_with_a_reason():
 
     found = {m.name.removeprefix("stratum_dsp_tpu.") for m in
              pkgutil.walk_packages(stratum_dsp_tpu.__path__, "stratum_dsp_tpu.") if m.ispkg}
-    assert found - set(SUBPACKAGES) == {"cli", "ml", "parallel"}  # cli's __init__ is empty
+    assert found - set(SUBPACKAGES) == {"cli", "ml"}  # cli's __init__ is empty
 
 
 SCRIPT = r"""

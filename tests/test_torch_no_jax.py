@@ -49,6 +49,17 @@ key_side = port.SLICE_CONFIG.replace(
 x = testing.c_major_scale()[None, :]
 out = port.analyze_batch(x, torch.tensor([x.shape[1]]), key_side, 44100, caps, device="cpu")
 assert bool(out["ok"][0]) and int(out["key_idx"][0]) == 0, out["key_idx"]
+# the scale-out: the default config on a 1-D tracks mesh and a (tracks, time)
+# mesh of repeated CPU devices
+from stratum_dsp_tpu_torch.parallel import mesh as pmesh
+cpu = torch.device("cpu")
+x = testing.kick_patterns([120.0, 172.0], 4.0)
+n = torch.tensor([x.shape[1]] * 2)
+m2 = pmesh.make_mesh([cpu] * 4, n_time=2)
+for m in (pmesh.make_mesh([cpu] * 2), m2):
+    sharded = pmesh.analyze_batch_sharded(pmesh.pad_batch_for_mesh(x, m), n, port.AnalysisConfig(),
+                                          44100, caps, m)
+    assert abs(float(sharded["bpm"][0]) - 120.0) < 2.0, sharded["bpm"]
 assert sys.modules["jax"] is None and sys.modules["stratum_dsp_tpu"] is None
 print("bpm", float(out["bpm"][0]))
 """
@@ -157,7 +168,9 @@ def test_no_jax_import_in_port_sources():
         "io/decode.py", "testing/__init__.py", "testing/synth.py", "testing/battery.py",
         "testing/flac_writer.py", "validation/__init__.py", "validation/keys.py",
         "validation/beats.py", "validation/id3.py", "validation/run_validation.py",
-        "validation/run_battery.py")} <= names
+        "validation/run_battery.py", "validation/sweep_tempogram_tuning.py",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/timeblocks.py",
+        "parallel/multihost.py")} <= names
     for path in files:
         for line in path.read_text().splitlines():
             assert not FORBIDDEN_IMPORT.match(line), (path, line)

@@ -262,9 +262,11 @@ def test_configs_outside_the_slice_raise(field, value):
 
 
 def test_rms_normalization_and_mesh_raise():
-    """RMS normalization runs (the JAX package's keys and shapes); a mesh is
-    the one thing that still raises."""
+    """RMS normalization runs (the JAX package's keys and shapes), also over
+    a mesh (``parallel.mesh``); what is not a mesh raises when passed as
+    one."""
     from stratum_dsp_tpu.config import NormalizationMethod
+    from stratum_dsp_tpu_torch.parallel.mesh import make_mesh
 
     x, n = torch.zeros((1, 4096)), torch.tensor([4096])
     jax_cfg = CFG.replace(normalization=NormalizationMethod.RMS)
@@ -272,7 +274,11 @@ def test_rms_normalization_and_mesh_raise():
                              device="cpu")
     ref = _jax_output_spec(x.numpy(), n.numpy(), jax_cfg)
     assert {k: tuple(v.shape) for k, v in out.items()} == {k: v.shape for k, v in ref.items()}
-    with pytest.raises(NotImplementedError, match="mesh"):
+    sharded = port.analyze_batch_arrays(x, n, port_cfg(jax_cfg), SAMPLE_RATE,
+                                        port.PipelineCaps(**CAPS),
+                                        mesh=make_mesh([torch.device("cpu")], n_time=1))
+    assert {k: tuple(v.shape) for k, v in sharded.items()} == {k: v.shape for k, v in ref.items()}
+    with pytest.raises(TypeError, match="mesh"):
         port.analyze_batch_arrays(x, n, port_cfg(CFG), SAMPLE_RATE, mesh=object(), device="cpu")
 
 
