@@ -46,14 +46,20 @@ one line each:
    through ``cli.analyze_file``, held to the same track analyzed in memory;
 12. the scale-out (``parallel/``): the 2-D (tracks 2 x time 2) mesh of
    ``cuda:0`` against the same mesh of the CPU on four kicks, outputs held to
-   each other; at the real size (the adversarial mix, T padded for a time
-   axis of 2) the 1-D mesh of 2 held to the unsharded run on the same batch,
-   and the 2-D (1 x 2) mesh held to it on every output but the key's (its key
-   STFT is the direct DFT of the JAX package's time blocks: kernel A is not
-   launched there), its key to its own second run, the clean mix's scales in
-   C; the launches of each mesh run, the walls of the three runs, the key
-   detection's time in time blocks and unsharded; then two processes on one
-   tracks axis (``parallel.multihost --device cuda``);
+   each other, and so under LOUDNESS on four silence sandwiches from numpy
+   (one's leading silence crosses the block edge), the card's run under
+   ``testing.AllocationRecorder``: no tensor allocated there may be longer
+   than a block and its context; at the real size (the adversarial mix, T
+   padded for a time axis of 2) the 1-D mesh of 2 held to the unsharded run
+   on the same batch, and the 2-D (1 x 2) mesh, its batch taken from host
+   memory and cut into blocks there, held to it on every output but the
+   key's (its key STFT is the direct DFT of the JAX package's time blocks:
+   kernel A is not launched there), its key to its own second run, the clean
+   mix's scales in C; what each 2-D position holds (gated: its block and no
+   more), the peak device memory and the walls of the three runs, the
+   launches of each mesh run, the key detection's time in time blocks and
+   unsharded; then two processes on one tracks axis
+   (``parallel.multihost --device cuda``);
 13. the synthetic battery: the 338 tracks of ``testing/battery.py`` as
    16-bit WAVs in a temporary directory (rendered in one process per CPU
    core), through the port's battery runner
@@ -228,18 +234,22 @@ def battery_phase(port, card: str) -> tuple:
 
 def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
     """The ``[mesh]`` phase: the scale-out of ``parallel/`` on the card.
-    A (2 x 2) mesh of ``cuda:0`` against one of the CPU at the tests' size;
-    at the real size the 1-D mesh of 2 and the 2-D (1 x 2) mesh against the
-    unsharded run on the same padded batch (the key outputs of the 2-D mesh
-    apart: its key STFT is the direct DFT, as the JAX package's time blocks
-    compute it); the two-process run. Returns the launches of each mesh run
-    and the walls. ``dev`` is ``cuda:0`` (the CPU only to rehearse the
+    A (2 x 2) mesh of ``cuda:0`` against one of the CPU at the tests' size,
+    under the default config and under LOUDNESS (with the allocation
+    recorder); at the real size the 1-D mesh of 2 and the 2-D (1 x 2) mesh
+    (from host memory) against the unsharded run on the same padded batch
+    (the key outputs of the 2-D mesh apart: its key STFT is the direct DFT,
+    as the JAX package's time blocks compute it); the two-process run.
+    Returns the launches of each mesh run, the walls and the peak memory.
+    ``dev`` is ``cuda:0`` (the CPU only to rehearse the
     phase's code on small batches)."""
     import torch
     from stratum_dsp_tpu_torch import testing
-    from stratum_dsp_tpu_torch.features.key.pipeline import detect_key_batch
+    from stratum_dsp_tpu_torch.features.key.pipeline import (_key_halo, _key_stft_params,
+                                                             detect_key_batch)
     from stratum_dsp_tpu_torch.measure import B_REAL, SECONDS_REAL
     from stratum_dsp_tpu_torch.parallel import mesh as pmesh
+    from stratum_dsp_tpu_torch.parallel import timeblocks
     from stratum_dsp_tpu_torch.parallel.multihost import free_port
 
     t_phase = time.perf_counter()
@@ -250,10 +260,11 @@ def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    def check(ref, got, what, skip=()):
+    def check(ref, got, what, skip=(), **kw):
         try:
             return testing.assert_outputs_match({k: v for k, v in ref.items() if k not in skip},
-                                                {k: v for k, v in got.items() if k not in skip})
+                                                {k: v for k, v in got.items() if k not in skip},
+                                                **kw)
         except AssertionError as exc:
             fail(f"[mesh] {what}: {exc}")
 
@@ -279,7 +290,46 @@ def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
                   f"in {worst[0]}); escalated {out_gpu['multi_res_triggered'].tolist()}; "
                   f"launches on the card {small_launches}")
 
-    # the real size: the default config, 40 x 180 s, T padded for a time axis of 2
+    # LOUDNESS on silence sandwiches from a numpy batch, the card's run under
+    # the allocation recorder: blocks of ~3 s, and the second track's 3.5 s
+    # of leading silence crosses the block edge (its trim shift copies pieces
+    # of both blocks); the third is a steady tone, whose BPM confidences are
+    # rounding noise (the output contract's noise-floor track)
+    def sandwich(lead_s, body, tail_s):
+        return torch.cat([torch.zeros(int(lead_s * testing.SAMPLE_RATE)), torch.as_tensor(body),
+                          torch.zeros(int(tail_s * testing.SAMPLE_RATE))])
+
+    loud = port.AnalysisConfig(normalization=port.NormalizationMethod.LOUDNESS)
+    sw, sw_n = testing.pad_batch([
+        sandwich(1.0, testing.kick_pattern(120.0, 3.0), 1.0),
+        sandwich(3.5, testing.kick_pattern(96.0, 2.5), 0.5), testing.silence_sandwich(2.0, 2.0),
+        sandwich(0.5, testing.kick_pattern(140.0, 4.0), 1.5)])
+    sw = pmesh.pad_batch_for_mesh(sw, m_gpu).numpy()
+    loud_cpu = pmesh.analyze_batch_sharded(sw, sw_n, loud, testing.SAMPLE_RATE, caps_t, m_cpu)
+    rec = testing.AllocationRecorder()
+    with rec:
+        loud_gpu = pmesh.analyze_batch_sharded(sw, sw_n, loud, testing.SAMPLE_RATE, caps_t, m_gpu)
+    sync()
+    worst_loud = check(loud_cpu, loud_gpu, "LOUDNESS on the (2 x 2) mesh differs between the CPU "
+                       "and the card", noise_floor_track=2)
+    key_frame, key_hop = _key_stft_params(loud)
+    bound = sw.shape[1] // 2 + key_frame - key_hop + 2 * _key_halo(loud) * key_hop
+    trim = loud_gpu["trim_start_seconds"].tolist()
+    small_gates = {"no allocation on the card longer than a block and its context":
+                   rec.largest[0] <= bound < sw.shape[1],
+                   "leading silence across the block edge": trim[1] > sw.shape[1] / 2 / testing.SAMPLE_RATE}
+    if not all(small_gates.values()):
+        fail(f"[mesh] LOUDNESS on the (2 x 2) mesh: gates failed: {small_gates}; largest "
+             f"allocation {rec.largest}, bound {bound}, trim {trim}")
+    phase("mesh", f"LOUDNESS, (2 x 2) mesh, 4 silence sandwiches of 6 s from numpy (T "
+                  f"{sw.shape[1]}, blocks of {sw.shape[1] // 2}): {len(loud_gpu)} outputs agree "
+                  f"between the CPU and the card (largest float difference {worst_loud[1]:.3g} "
+                  f"in {worst_loud[0]}); trim starts {[round(v, 4) for v in trim]} s; largest "
+                  f"allocation on the card {rec.largest[0]} samples ({rec.largest[1]} "
+                  f"{list(rec.largest[2])}), bound {bound}; gates {small_gates}")
+
+    # the real size: the default config, 40 x 180 s, T padded for a time axis
+    # of 2; the 2-D mesh takes its batch from host memory, cut into blocks there
     cfg = port.AnalysisConfig()
     meshes = {
         "unsharded": None,
@@ -288,25 +338,58 @@ def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
                                n_time=2),
     }
     padded = {k: pmesh.pad_batch_for_mesh(v, meshes["2-D"]) for k, v in batches.items()}
+    host = {k: v.cpu() for k, v in padded.items()}
+    placed = []  # each 2-D run's blocks: (device, shape, bytes) a mesh position
+    from_samples = timeblocks.TimeBlocks.from_samples.__func__
+
+    def record_placement(cls, samples, mesh):
+        blocks = from_samples(cls, samples, mesh)
+        placed.append([(str(b.device), tuple(b.shape), b.nbytes) for b in blocks.blocks])
+        return blocks
 
     def run(name, mix="adversarial"):
+        placed.clear()
         port.reset_launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
         t0 = time.perf_counter()
         if meshes[name] is None:
             res = port.analyze_batch(padded[mix], lengths, cfg, device=dev)
-        else:
+        elif name == "1-D":
             res = pmesh.analyze_batch_sharded(padded[mix], lengths, cfg, testing.SAMPLE_RATE,
                                               port.PipelineCaps(), meshes[name])
+        else:
+            timeblocks.TimeBlocks.from_samples = classmethod(record_placement)
+            try:
+                res = pmesh.analyze_batch_sharded(host[mix], lengths.cpu(), cfg,
+                                                  testing.SAMPLE_RATE, port.PipelineCaps(),
+                                                  meshes[name])
+            finally:
+                timeblocks.TimeBlocks.from_samples = classmethod(from_samples)
         sync()
-        return res, time.perf_counter() - t0, {fn.__name__: fn.launches for fn in port.KERNELS}
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        return res, wall, {fn.__name__: fn.launches for fn in port.KERNELS}, (held, peak)
 
-    outs, walls, launches = {}, {}, {}
+    outs, walls, launches, memory = {}, {}, {}, {}
     for name in meshes:
-        outs[name], wall, launches[name] = run(name)
+        outs[name], wall, launches[name], _ = run(name)
         walls[name] = [wall]
     for name in meshes:  # the first round met the padded shape cold
-        res, wall, _ = run(name)
+        res, wall, _, memory[name] = run(name)
         walls[name].append(wall)
+    t_pad = padded["adversarial"].shape[1]
+    positions = [p for shard in placed for p in shard]
+    layout_ok = len(placed) == 1 and [shape for _, shape, _ in positions] == [
+        (B_REAL, t_pad // 2)] * 2
+    phase("mesh", "the 2-D (1 x 2) mesh's positions, from host memory: " + "; ".join(
+        f"(0, {j}) on {d}: [{shape[0]}, {shape[1]}] f32, {nbytes / 1e6:.1f} MB, {shape[1]} "
+        f"samples a row of {t_pad}" for j, (d, shape, nbytes) in enumerate(positions)))
+    phase("mesh", "peak device memory of the warm batch (torch.cuda.max_memory_allocated, reset "
+                  "before it; held before it in brackets): " + ", ".join(
+                      f"{k} {v[1] / 1e9:.3f} GB ({v[0] / 1e9:.3f} GB)" for k, v in memory.items())
+          + f"; warm walls (s) { {k: round(v[-1], 4) for k, v in walls.items()} } on {card}")
     key_again = {k: res[k] for k in ("key_idx", "key_confidence")}  # the 2-D mesh's
     ref = outs["unsharded"]
     worst_1d = check(ref, outs["1-D"], "the 1-D mesh of 2 differs from the unsharded run")
@@ -317,13 +400,13 @@ def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
                      skip=key_outputs)
     check({k: outs["2-D"][k] for k in key_again}, key_again,
           "the 2-D mesh's key differs between two runs")
-    clean_2d, _, _ = run("2-D", "clean")
+    clean_2d = run("2-D", "clean")[0]
     n_key_moved = int((outs["2-D"]["key_idx"] != ref["key_idx"]).sum())
     # kernel D on the 2-D mesh: every 512-frame chunk of both time blocks, of
     # the base pass and of the escalated rows' hop-256 pass
-    t_pad = padded["adversarial"].shape[1]
     want_d = sum(2 * -(-(t_pad // 2 // hop) // 512) for hop in (512, 256))
     gates = {
+        "each 2-D position holds its block and no more": layout_ok,
         "scales in C on the 2-D mesh": bool((clean_2d["key_idx"][32:] == 0).all()),
         "escalated on the 2-D mesh": bool(outs["2-D"]["multi_res_used"].any()),
         "A not launched on the 2-D mesh": launches["2-D"]["polyphase_stage2"] == 0,
@@ -363,7 +446,7 @@ def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
                   f"tracks/s {rate}; key detection alone: time blocks (direct DFT) "
                   f"{key_2d_ms:.1f} ms, unsharded (polyphase) {key_1_ms:.1f} ms, "
                   f"{key_2d_ms - key_1_ms:+.1f} ms; gates {gates}")
-    del outs, padded, clean_2d
+    del outs, padded, host, clean_2d
 
     # two processes, one tracks axis of 8 kicks
     t0 = time.perf_counter()
@@ -378,7 +461,7 @@ def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
                   f"multihost smoke OK in {time.perf_counter() - t0:.1f} s ({backend})")
     phase("mesh", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"launches_mesh_1d": launches["1-D"], "launches_mesh_2d": launches["2-D"],
-            "walls": walls, "key_2d_extra_ms": key_2d_ms - key_1_ms}
+            "walls": walls, "key_2d_extra_ms": key_2d_ms - key_1_ms, "memory": memory}
 
 
 def main() -> int:

@@ -55,13 +55,22 @@ class PipelineCaps:
 
 
 def _collect_spec(samples, lengths, frame_size: int, hop: int, chunk_frames: int,
-                  bf16: bool = False):
+                  bf16: bool = False, time_mesh=None):
     """The whole magnitude spectrogram ``[B, F, K]`` and the frame counts
-    (the HPSS paths only; everything else streams)."""
-    outs, _, frame_counts = stft_reduce(
-        samples, lengths, frame_size, hop,
-        lambda spec, fidx, fvalid, carry: ({"spec": spec}, carry), lambda b: None,
-        chunk_frames=chunk_frames, bf16=bf16)
+    (the HPSS paths only; everything else streams). Under a time axis it is
+    taken in time blocks and its frames gather on the row's first device."""
+    def keep(spec, fidx, fvalid, carry):
+        return {"spec": spec}, carry
+
+    if time_mesh is not None:
+        from ..parallel.timeblocks import stft_reduce_sharded
+
+        outs, _, frame_counts = stft_reduce_sharded(
+            samples, lengths, frame_size, hop, keep, lambda b: None, time_mesh, prev_frames=0,
+            chunk_frames=chunk_frames, bf16=bf16)
+    else:
+        outs, _, frame_counts = stft_reduce(samples, lengths, frame_size, hop, keep,
+                                            lambda b: None, chunk_frames=chunk_frames, bf16=bf16)
     return outs["spec"], frame_counts
 
 
@@ -104,12 +113,15 @@ def analyze_batch_arrays(samples: torch.Tensor, lengths: torch.Tensor, cfg: Anal
     ``mesh`` (a ``parallel.mesh.Mesh``; ``device`` is then its first device
     or None): the batch is cut into one shard a row of the mesh's
     ``tracks`` axis, B divisible by its size, each shard on its row's first
-    device. With a ``time`` axis every sample-domain frontend (silence RMS,
-    onset RMS, the BPM, hop-256 and key STFTs) runs in time blocks over the
-    row's devices (``parallel.timeblocks``), T divisible by n_time * 1024
-    (``parallel.mesh.pad_batch_for_mesh``); normalization, the trim shift and
-    the HPSS spectrogram run on the whole rows. The result lies on the
-    mesh's first device."""
+    device. With a ``time`` axis (T divisible by n_time * 1024,
+    ``parallel.mesh.pad_batch_for_mesh``) each time position of a row holds
+    only its own block of the shard's samples (``parallel.timeblocks.
+    TimeBlocks``; ``samples`` may then also be a numpy array, cut on the
+    host), and every sample-domain stage (normalization, the silence RMS and
+    trim shift, onset RMS, the BPM, hop-256, HPSS and key STFTs) runs block
+    by block on the row's devices; the per-frame features gather on the
+    row's first device, where the rest runs. The result lies on the mesh's
+    first device."""
     if debug_stop_after not in STAGES:
         raise ValueError(f"debug_stop_after must be one of {STAGES}, got {debug_stop_after!r}")
     if mesh is not None:
@@ -135,7 +147,7 @@ def _analyze_on_mesh(samples, lengths, cfg: AnalysisConfig, sample_rate: int, ca
         raise ValueError(f"analyze_batch: device {device} is not the mesh's first device {home}")
     on_mesh = {str(d) for d in grid.flat}
     for x in (samples, lengths):
-        if x.device.type != "cpu" and str(x.device) not in on_mesh:
+        if torch.is_tensor(x) and x.device.type != "cpu" and str(x.device) not in on_mesh:
             raise ValueError(f"analyze_batch: an input lies on {x.device}, which is not a "
                              "device of the mesh")
     b, t = samples.shape
@@ -148,8 +160,14 @@ def _analyze_on_mesh(samples, lengths, cfg: AnalysisConfig, sample_rate: int, ca
     def run(i):
         dev = grid[i, 0]
         rows = slice(i * bl, (i + 1) * bl)
-        return _analyze(samples[rows].to(dev), lengths[rows].to(dev), cfg, sample_rate, caps,
-                        debug_stop_after, mesh.row(i) if n_time > 1 else None, b)
+        if n_time > 1:
+            from ..parallel.timeblocks import TimeBlocks
+
+            x = TimeBlocks.from_samples(samples[rows], mesh.row(i))
+        else:
+            x = samples[rows].to(dev)
+        return _analyze(x, lengths[rows].to(dev), cfg, sample_rate, caps, debug_stop_after,
+                        mesh.row(i) if n_time > 1 else None, b)
 
     outs = map_on_devices(run, list(range(grid.shape[0])), list(grid[:, 0]))
     return {k: torch.cat([o[k].to(home) for o in outs]) for k in outs[0]}
@@ -158,16 +176,18 @@ def _analyze_on_mesh(samples, lengths, cfg: AnalysisConfig, sample_rate: int, ca
 def _analyze(samples, lengths, cfg: AnalysisConfig, sample_rate: int, caps: PipelineCaps,
              debug_stop_after: str, time_mesh, chunk_batch: int) -> Dict[str, torch.Tensor]:
     """The pipeline on the device the batch lies on. ``time_mesh``: a
-    ``(1, n_time)`` mesh whose devices run the time blocks, or None;
-    ``chunk_batch``: the batch size the key and BPM chunk sizes are sized
-    for (the whole batch's, as one SPMD program sees it)."""
+    ``(1, n_time)`` mesh whose devices hold the time blocks of ``samples``
+    (a ``parallel.timeblocks.TimeBlocks``; its ``device`` is the row's first
+    device), or None; ``chunk_batch``: the batch size the key and BPM chunk
+    sizes are sized for (the whole batch's, as one SPMD program sees it)."""
     device = samples.device
     if device.type == "cuda":
         # f32 matmuls stay f32 (the reference's band sums are f32-exact);
         # these switches are process-wide in PyTorch
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    samples = samples.to(device=device, dtype=torch.float32)
+    if time_mesh is None:
+        samples = samples.to(device=device, dtype=torch.float32)
     lengths = lengths.to(device=device, dtype=torch.int64)
     b, t = samples.shape
     track_ok = lengths > 0
@@ -200,7 +220,7 @@ def _analyze(samples, lengths, cfg: AnalysisConfig, sample_rate: int, caps: Pipe
 
     if cfg.enable_hpss_onsets or cfg.enable_tempogram_percussive_fallback:
         full_spec, _ = _collect_spec(samples, lengths, cfg.frame_size, cfg.hop_size,
-                                     caps.chunk_frames, bf16=cfg.stft_bf16)
+                                     caps.chunk_frames, bf16=cfg.stft_bf16, time_mesh=time_mesh)
         _, perc_spec = hpss_decompose(full_spec, frame_counts, cfg.hpss_margin)
         del full_spec
 
@@ -434,8 +454,9 @@ def _escalate(samples, lengths, esc, cfg: AnalysisConfig, sample_rate: int, base
     are those of the full batch. The base pass is the hop-512 pass when
     ``cfg.hop_size`` is 512: its estimate, features and novelty go along and
     only the hop-256 STFT runs anew, in time blocks under a ``mesh`` with a
-    time axis. (The JAX package runs the whole batch there; each row's result
-    is the same, since the sub-batch keeps T.)"""
+    time axis (the rows gathered block by block, ``TimeBlocks.index_select``).
+    (The JAX package runs the whole batch there; each row's result is the
+    same, since the sub-batch keeps T.)"""
     idx = torch.nonzero(esc).squeeze(1)
     if idx.numel() == 0:
         return None

@@ -78,7 +78,8 @@ def _condition_chunk(spec, fvalid, cfg: AnalysisConfig):
 def _stream_key_stft(samples, lengths, cfg: AnalysisConfig, sample_rate: int, reducer,
                      halo: int, chunk_frames: int, mesh):
     """The key STFT streamed through ``reducer``: in time blocks under a
-    ``(tracks, time)`` mesh, where it is the direct windowed DFT (a
+    ``(tracks, time)`` mesh (``samples`` then a tracks shard's
+    ``parallel.timeblocks.TimeBlocks``), where it is the direct windowed DFT (a
     symmetric Hann, as the JAX package's time-sharded path computes it),
     else by ``stft_reduce`` (the polyphase form under bf16)."""
     frame_size, hop = _key_stft_params(cfg)

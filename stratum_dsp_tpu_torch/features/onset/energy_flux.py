@@ -19,9 +19,9 @@ def detect_energy_flux_onsets(samples: torch.Tensor, lengths: torch.Tensor, fram
     """Onsets as ``(positions [B, K] samples, valid [B, K])``: flux index i
     (frame i -> i+1) maps to sample (i+1)*hop, kept inside the track.
 
-    With a ``(tracks, time)`` ``mesh`` the frame RMS runs in time blocks
-    (``parallel.timeblocks``); the flux and peak logic runs on the gathered
-    ``[B, NF]`` curve."""
+    With a ``(tracks, time)`` ``mesh`` (``samples`` then a tracks shard's
+    ``parallel.timeblocks.TimeBlocks``) the frame RMS runs in time blocks;
+    the flux and peak logic runs on the gathered ``[B, NF]`` curve."""
     if mesh is not None and "time" in mesh.shape:
         from ...parallel.timeblocks import frame_rms_sharded
 

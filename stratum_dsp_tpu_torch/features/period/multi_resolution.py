@@ -52,7 +52,8 @@ def hop_candidates(samples, lengths, cfg: AnalysisConfig, sample_rate: int, hop:
                    top_n: int, mesh=None):
     """One hop's tempogram estimate (with its candidate list), full-band
     novelty curve and valid counts. An auxiliary pass: no stride-2 SuperFlux
-    and no onset flux. With a ``(tracks, time)`` ``mesh`` the STFT runs in
+    and no onset flux. With a ``(tracks, time)`` ``mesh`` (``samples`` then a
+    tracks shard's ``parallel.timeblocks.TimeBlocks``) the STFT runs in
     time blocks (``parallel.timeblocks``, 512-frame chunks)."""
     if mesh is not None and "time" in mesh.shape:
         from ...parallel.timeblocks import compute_bpm_spectral_features_sharded

@@ -11,9 +11,11 @@ map onto PyTorch devices as follows:
   depend on the batch are computed from the global B, as the JAX package's
   one SPMD program sees it.
 * ``time`` axis: long tracks are cut into contiguous sample blocks (context
-  parallelism). Every sample-domain frontend (silence and onset RMS, the
-  BPM, hop-256 and key STFTs) runs through ``parallel.timeblocks``: each
-  block's device gets its samples with the neighbours' context, runs the
+  parallelism, the JAX package's ``P("tracks", "time")``): each position of
+  a shard's row holds only its own block (``parallel.timeblocks.
+  TimeBlocks``). Every sample-domain stage (normalization, silence RMS and
+  trim shift, onset RMS, the BPM, hop-256, HPSS and key STFTs) runs block by
+  block: each block's device takes its neighbours' edge samples, runs the
   same reducer as the unsharded path, and the per-frame features come back
   concatenated on the shard's first device, where everything downstream
   runs. Activated by passing a 2-D mesh.
@@ -140,10 +142,12 @@ def analyze_batch_sharded(samples, lengths, cfg: AnalysisConfig, sample_rate: in
 
     1-D mesh: the batch is sharded over ``tracks``. 2-D mesh: each tracks
     shard's samples are cut into ``time`` blocks with the time-block
-    frontends active (pad T with ``pad_batch_for_mesh`` first). Numpy arrays
-    or tensors in (on the host or on a device of the mesh); the result dict
-    lies on the mesh's first device."""
-    if not torch.is_tensor(samples):
+    frontends active (pad T with ``pad_batch_for_mesh`` first); a host
+    batch is cut on the host, and each mesh position receives only its own
+    block (``timeblocks.TimeBlocks``). Numpy arrays or tensors in (on the
+    host or on a device of the mesh); the result dict lies on the mesh's
+    first device."""
+    if not torch.is_tensor(samples) and "time" not in mesh.shape:
         samples = torch.as_tensor(np.asarray(samples, np.float32))
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(np.asarray(lengths))

@@ -12,16 +12,17 @@ the BPM reducer on a card); the per-frame features are tiny (~14 floats a
 frame against 512 samples a hop), so they come back concatenated along
 frames and everything downstream runs on the whole curves.
 
-How the JAX package's collectives map here. A tracks shard's rows stay whole
-on its first device (time index 0). Each time device gets a copy of its
-block with the left and right context cut from the whole rows, which takes
-the place of the two ``ppermute``s, their wrap-around included: block 0's
-left context is the last block's tail and the last block's right context is
-block 0's head, and the frames they feed are masked by global frame index,
-as in JAX. The outputs come back by ``torch.cat`` on the first device in
-place of ``all_gather``. So the one difference from JAX's layout: the
-samples' memory is not divided, each shard's first device holds its rows
-whole (a split layout is later work, ``ROADMAP.md``).
+The layout is the JAX package's ``P("tracks", "time")``: a ``TimeBlocks``
+holds a tracks shard's samples as one ``[rows, T / n_time]`` block a time
+position, each on that position's device, and no device ever holds a whole
+row. A block's context is the neighbours' edge samples alone, copied between
+devices (``TimeBlocks.context``), which takes the place of the JAX package's
+two ``ppermute``s, their wrap-around included: block 0's left context is the
+last block's tail and the last block's right context is block 0's head, and
+the frames they feed are masked by global frame index, as in JAX. The
+outputs come back by ``torch.cat`` on the row's first device in place of
+``all_gather``. Normalization and the trim shift run block by block too
+(``preprocessing``).
 
 Shapes follow the JAX package, not the unsharded path: the STFT outputs have
 ``n_time * fpb`` frames (``fpb = T / (n_time * hop)``), chunks are
@@ -37,8 +38,10 @@ Layout requirements: ``T % (n_time * hop) == 0`` and ``frame_size % hop == 0``
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -57,49 +60,157 @@ def pad_to_time_multiple(samples: torch.Tensor, n_time: int, quantum: int):
     return F.pad(samples, (0, t_pad - t)) if t_pad != t else samples
 
 
-def _circular_slice(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """Samples ``[lo, hi)`` of each row of ``x [B, T]``, indices taken
-    modulo T (what the JAX package's ``ppermute`` ring delivers)."""
-    t = x.shape[1]
-    if 0 <= lo and hi <= t:
-        return x[:, lo:hi]
-    parts = [x[:, lo % t:]] if lo < 0 else []
-    parts.append(x[:, max(lo, 0):min(hi, t)])
-    if hi > t:
-        parts.append(x[:, :hi - t])
-    return torch.cat(parts, dim=1)
+@dataclasses.dataclass(frozen=True, eq=False)
+class TimeBlocks:
+    """A tracks shard's ``[rows, T]`` samples cut along time: ``blocks[j]``
+    is the f32 ``[rows, t_blk]`` block of time position ``j``, on device
+    ``mesh.grid()[0, j]`` of the shard's ``(1, n_time)`` mesh. ``shape``
+    and ``device`` (the row's first device, where the features gather) stand
+    in for a tensor's where a frontend reads them."""
+
+    blocks: List[torch.Tensor]
+    t: int
+    t_blk: int
+    mesh: Mesh
+
+    @classmethod
+    def from_samples(cls, samples, mesh: Mesh) -> "TimeBlocks":
+        """Cut ``samples [rows, T]`` over the time axis of ``mesh`` (one row
+        of a mesh). A host array (numpy or a CPU tensor) is cut there and
+        each block copied straight to its device, through pinned memory to a
+        card; a CUDA tensor is sliced and each block copied to its device
+        (a view where it lies there already). No whole row is copied."""
+        devices = list(mesh.grid()[0])
+        if not torch.is_tensor(samples):
+            samples = torch.as_tensor(np.asarray(samples))
+        t = samples.shape[1]
+        if t % len(devices):
+            raise ValueError(f"T = {t} does not divide over a time axis of {len(devices)}")
+        t_blk = t // len(devices)
+        blocks = []
+        for j, dev in enumerate(devices):
+            part = samples[:, j * t_blk:(j + 1) * t_blk]
+            if part.device.type == "cpu" and dev.type == "cuda":
+                staged = torch.empty(part.shape, dtype=torch.float32, pin_memory=True)
+                part = staged.copy_(part)
+            blocks.append(part.to(device=dev, dtype=torch.float32, non_blocking=True))
+        return cls(blocks, t, t_blk, mesh)
+
+    @property
+    def shape(self) -> tuple:
+        return (self.blocks[0].shape[0], self.t)
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks[0].device
+
+    @property
+    def n_time(self) -> int:
+        return len(self.blocks)
+
+    def replace(self, blocks: List[torch.Tensor]) -> "TimeBlocks":
+        return dataclasses.replace(self, blocks=blocks)
+
+    def map(self, fn: Callable) -> list:
+        """``[fn(blocks[j], j) for j]``, each call on block j's device (in
+        one host thread each where those are distinct cards)."""
+        return map_on_devices(lambda j: fn(self.blocks[j], j), list(range(self.n_time)),
+                              [b.device for b in self.blocks])
+
+    def context(self, j: int, left: int, right: int) -> torch.Tensor:
+        """Block ``j`` with the last ``left`` samples of its left neighbour
+        before it and the first ``right`` of its right neighbour after it,
+        on block j's device; the neighbours wrap around, as the JAX
+        package's ``ppermute`` ring does. Only those edge samples are
+        copied between devices."""
+        if left > self.t_blk or right > self.t_blk:
+            raise ValueError(f"a block of {self.t_blk} samples cannot hold its neighbours' "
+                             f"context ({left} left, {right} right): use fewer time blocks")
+        blk = self.blocks[j]
+        parts = [blk]
+        if left:
+            edge = self.blocks[(j - 1) % self.n_time][:, self.t_blk - left:]
+            parts.insert(0, edge.to(blk.device, non_blocking=True))
+        if right:
+            edge = self.blocks[(j + 1) % self.n_time][:, :right]
+            parts.append(edge.to(blk.device, non_blocking=True))
+        return torch.cat(parts, dim=1) if len(parts) > 1 else blk
+
+    def index_select(self, dim: int, index: torch.Tensor) -> "TimeBlocks":
+        """The rows ``index`` of every block, block by block (``dim`` 0, as
+        ``Tensor.index_select`` takes it)."""
+        if dim != 0:
+            raise ValueError("TimeBlocks select rows only (dim 0)")
+        return self.replace([b.index_select(0, index.to(b.device)) for b in self.blocks])
+
+    def masked(self, lengths: torch.Tensor) -> "TimeBlocks":
+        """Every row zeroed from its ``lengths`` on, block by block."""
+        def run(blk, j):
+            gidx = j * self.t_blk + torch.arange(self.t_blk, device=blk.device)
+            return torch.where(gidx[None, :] < lengths.to(blk.device)[:, None], blk, 0.0)
+
+        return self.replace(self.map(run))
+
+    def shifted(self, starts: List[int], lengths: List[int]) -> "TimeBlocks":
+        """Row ``r`` moved left by ``starts[r]`` samples and zeroed from
+        ``lengths[r]`` on (host ints, ``starts[r] + lengths[r] <= T``). Row
+        r of block j reads samples ``[j t_blk + s, (j + 1) t_blk + s)``,
+        which lie in at most two blocks: only those pieces are copied, and
+        only up to the row's length. Rows that do not move are masked in
+        place of their copy."""
+        n = torch.as_tensor(lengths, dtype=torch.int64)
+        out = self.masked(n).blocks
+        for r, (s, ln) in enumerate(zip(starts, lengths)):
+            if s == 0:
+                continue
+            for j, dst in enumerate(out):
+                dst[r].zero_()
+                lo = j * self.t_blk
+                m = min(max(ln - lo, 0), self.t_blk)  # samples this block keeps
+                pos = 0
+                while pos < m:
+                    k, off = divmod(lo + pos + s, self.t_blk)
+                    take = min(m - pos, self.t_blk - off)
+                    dst[r, pos:pos + take].copy_(self.blocks[k][r, off:off + take],
+                                                 non_blocking=True)
+                    pos += take
+        return self.replace(out)
 
 
-def _map_blocks(samples: torch.Tensor, counts: torch.Tensor, mesh: Mesh, left_ctx: int,
-                right_ctx: int, block_fn: Callable) -> Dict[str, torch.Tensor]:
+def time_blocks(samples, mesh: Mesh) -> List[TimeBlocks]:
+    """``samples [B, T]`` (numpy, or a tensor on the host or a card) as one
+    ``TimeBlocks`` a tracks shard of ``mesh``, cut as ``from_samples`` cuts."""
+    bl = check_tracks_split(samples.shape[0], mesh)
+    return [TimeBlocks.from_samples(samples[i * bl:(i + 1) * bl], mesh.row(i))
+            for i in range(mesh.grid().shape[0])]
+
+
+def _n_time(samples, mesh: Mesh) -> int:
+    return samples.n_time if isinstance(samples, TimeBlocks) else mesh.shape["time"]
+
+
+def _map_blocks(samples, counts: torch.Tensor, mesh: Mesh, left_ctx: int, right_ctx: int,
+                block_fn: Callable) -> Dict[str, torch.Tensor]:
     """Run ``block_fn(ext, counts, j)`` for every (tracks shard, time block
-    j) on its mesh device, with ``ext`` the block's rows and samples plus
-    ``left_ctx`` / ``right_ctx`` samples of its neighbours and ``counts`` the
-    rows' per-track counts [rows] (samples or frames); concatenate each
-    output ``[rows, frames, ...]`` along frames within a shard and along rows
-    across shards, on ``samples``' device."""
-    b, t = samples.shape
-    grid = mesh.grid()
-    n_tracks, n_time = grid.shape
-    bl = check_tracks_split(b, mesh)
-    t_blk = t // n_time
-    if left_ctx > t_blk or right_ctx > t_blk:
-        raise ValueError(f"a block of {t_blk} samples cannot hold its neighbours' context "
-                         f"({left_ctx} left, {right_ctx} right): use fewer time blocks")
-    jobs = [(i, j) for i in range(n_tracks) for j in range(n_time)]
-
-    def run(job):
-        i, j = job
-        dev = grid[i, j]
-        rows = slice(i * bl, (i + 1) * bl)
-        ext = _circular_slice(samples[rows], j * t_blk - left_ctx, (j + 1) * t_blk + right_ctx)
-        return block_fn(ext.to(dev), counts[rows].to(dev), j)
-
-    outs = map_on_devices(run, jobs, [grid[i, j] for i, j in jobs])
-    home = samples.device
-    return {k: torch.cat([torch.cat([outs[i * n_time + j][k].to(home) for j in range(n_time)],
-                                    dim=1) for i in range(n_tracks)], dim=0)
-            for k in outs[0]}
+    j) on the block's device, with ``ext`` the block plus ``left_ctx`` /
+    ``right_ctx`` samples of its neighbours (``TimeBlocks.context``) and
+    ``counts`` the rows' per-track counts [rows] (samples or frames);
+    concatenate each output ``[rows, frames, ...]`` along frames within a
+    shard and along rows across shards, on the first block's device.
+    ``samples`` is one shard's ``TimeBlocks`` or a ``[B, T]`` tensor, which
+    is first cut into blocks over ``mesh``."""
+    if isinstance(samples, TimeBlocks):
+        shards, home = [samples], samples.device
+    else:
+        shards, home = time_blocks(samples, mesh), samples.device
+    outs, r0 = [], 0
+    for shard in shards:
+        rows = slice(r0, r0 + shard.shape[0])
+        r0 = rows.stop
+        res = shard.map(lambda blk, j: block_fn(shard.context(j, left_ctx, right_ctx),
+                                                counts[rows].to(blk.device), j))
+        outs.append({k: torch.cat([o[k].to(home) for o in res], dim=1) for k in res[0]})
+    return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
 
 
 def stft_reduce_sharded(samples: torch.Tensor, lengths: torch.Tensor, frame_size: int, hop: int,
@@ -109,7 +220,8 @@ def stft_reduce_sharded(samples: torch.Tensor, lengths: torch.Tensor, frame_size
                         bf16: bool = False):
     """Time-sharded equivalent of ``ops.stft.stft_reduce``.
 
-    ``samples [B, T]`` with T divisible by ``n_time * hop``; the reducer
+    ``samples``: a ``[B, T]`` tensor, cut into blocks over ``mesh``, or one
+    tracks shard's ``TimeBlocks``, T divisible by ``n_time * hop``; the reducer
     contract of ``stft_reduce``: the reducer sees GLOBAL frame indices, a
     chunk's spectra with ``halo_frames`` of context on each side, and a carry
     threaded across its block's chunks.
@@ -125,7 +237,7 @@ def stft_reduce_sharded(samples: torch.Tensor, lengths: torch.Tensor, frame_size
     """
     del out_template
     b, t = samples.shape
-    n_time = mesh.shape["time"]
+    n_time = _n_time(samples, mesh)
     if frame_size % hop:
         raise ValueError(f"frame_size {frame_size} must be a multiple of hop {hop}")
     if t % (n_time * hop):
@@ -192,7 +304,8 @@ def frame_rms_sharded(samples: torch.Tensor, lengths: torch.Tensor, frame_size: 
     (energy_flux.rs:105-131 / silence.rs:144-169: frames at i*hop, clamped to
     each track's end).
 
-    Requires ``T % (n_time * hop) == 0``. Returns ``(rms [B, NF], n_frames
+    ``samples`` as for ``stft_reduce_sharded``; requires
+    ``T % (n_time * hop) == 0``. Returns ``(rms [B, NF], n_frames
     [B])`` with NF = T // hop (the padded grid: frames that would start past
     T - frame_size are still emitted; callers mask by n_frames). Each block's
     sums of squares are one prefix sum over the block and its right context,
@@ -200,7 +313,7 @@ def frame_rms_sharded(samples: torch.Tensor, lengths: torch.Tensor, frame_size: 
     the JAX function adds them, and the root is IEEE-rounded
     (``ops.masked.sqrt_f32``): the result is the JAX function's bit for bit."""
     b, t = samples.shape
-    n_time = mesh.shape["time"]
+    n_time = _n_time(samples, mesh)
     if t % (n_time * hop):
         raise ValueError(f"padded length {t} must be divisible by n_time*hop = {n_time * hop}")
     t_blk = t // n_time

@@ -8,6 +8,12 @@ impulse response: a constant-coefficient order-2 IIR decays exponentially
 signal in blocks of ``KWEIGHT_FIR_TAPS`` samples, each output block the
 product of [previous block | block] with a banded ``[512, 256]`` matrix, as
 two f32 matmuls.
+
+Under a mesh's time axis the samples come as a tracks shard's
+``parallel.timeblocks.TimeBlocks`` and every measurement runs block by block,
+as the JAX partitioner divides it: a partial max or sum per block, then the
+max or sum over the blocks on the row's first device, and the gain is applied
+to each block on its own device.
 """
 
 from __future__ import annotations
@@ -93,23 +99,64 @@ def k_weighting_filter(samples: torch.Tensor, sample_rate: float) -> torch.Tenso
     return y.reshape(b, nb * blk)[:, :t]
 
 
-def calculate_lufs(samples: torch.Tensor, lengths: torch.Tensor,
-                   sample_rate: float) -> torch.Tensor:
+def calculate_lufs(samples, lengths: torch.Tensor, sample_rate: float) -> torch.Tensor:
     """Integrated LUFS per track (normalization.rs:185-259): K-weighting, the
     mean squares of 400 ms blocks, the -70 LUFS absolute gate, the mean of the
     gated blocks, then -0.691 + 10 log10. -inf where every block lies below
-    the gate."""
+    the gate. ``samples``: a ``[B, T]`` tensor or a ``TimeBlocks``."""
     b, t = samples.shape
     block = int(sample_rate * LUFS_BLOCK_DURATION_MS / 1000.0)
+    if not torch.is_tensor(samples):
+        return _gated_lufs(_gating_sums_blocks(samples, lengths, sample_rate, block), lengths,
+                           block)
     filtered = k_weighting_filter(samples, sample_rate)
     # the FIR's tail leaks past the valid region
     filtered = torch.where(masked.length_mask(lengths, t), filtered, 0.0)
 
     n_blocks = -(-t // block)
     f2 = F.pad(filtered * filtered, (0, n_blocks * block - t)).reshape(b, n_blocks, block)
-    sums = f2.sum(dim=-1)
+    return _gated_lufs(f2.sum(dim=-1), lengths, block)
+
+
+def _gating_sums_blocks(samples, lengths: torch.Tensor, sample_rate: float,
+                        block: int) -> torch.Tensor:
+    """The sums of the K-weighted squares over each 400 ms gating block,
+    ``[rows, n_blocks]`` on the row's first device, from time blocks: each
+    time block filters itself with the FIR's 256 samples of left context
+    from its left neighbour (zeros before the first block: the filter's
+    initial state), and sums the parts of the gating blocks it holds; a
+    gating block that straddles time blocks adds its parts there, in block
+    order."""
+    taps, tb = KWEIGHT_FIR_TAPS, samples.t_blk
+
+    def part(blk, j):
+        ext = samples.context(j, taps, 0) if j else F.pad(blk, (taps, 0))
+        y = k_weighting_filter(ext, sample_rate)[:, taps:]
+        gidx = j * tb + torch.arange(tb, device=blk.device)
+        y = torch.where(gidx[None, :] < lengths.to(blk.device)[:, None], y, 0.0)
+        f2 = y * y
+        head = min(block - (j * tb) % block, tb)  # the rest of the first gating block
+        n_full = (tb - head) // block
+        pieces = [f2[:, :head].sum(dim=-1, keepdim=True)]
+        if n_full:
+            pieces.append(f2[:, head:head + n_full * block].reshape(-1, n_full, block).sum(-1))
+        if head + n_full * block < tb:
+            pieces.append(f2[:, head + n_full * block:].sum(dim=-1, keepdim=True))
+        return torch.cat(pieces, dim=1)
+
+    home = samples.device
+    sums = torch.zeros((samples.shape[0], -(-samples.t // block)), device=home)
+    for j, p in enumerate(samples.map(part)):
+        g0 = j * tb // block
+        sums[:, g0:g0 + p.shape[1]] += p.to(home)
+    return sums
+
+
+def _gated_lufs(sums: torch.Tensor, lengths: torch.Tensor, block: int) -> torch.Tensor:
+    """Integrated LUFS from the gating blocks' sums of squares ``[B, n_blocks]``."""
+    n_blocks = sums.shape[1]
     # full blocks except a possibly short last one over the valid length
-    starts = torch.arange(n_blocks, device=samples.device) * block
+    starts = torch.arange(n_blocks, device=sums.device) * block
     counts = (lengths[:, None] - starts[None, :]).clamp(0, block)
     block_valid = counts > 0
     mean_sq = sums / counts.clamp_min(1)
@@ -126,18 +173,38 @@ def _db(x: torch.Tensor) -> torch.Tensor:
     return 20.0 * torch.log10(x.clamp_min(EPSILON))
 
 
-def normalize(samples: torch.Tensor, lengths: torch.Tensor, method: NormalizationMethod,
+def _peak_and_sum_squares(xm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's largest magnitude and sum of squares of zero-padded time
+    blocks ``xm``, on the row's first device: per block, then the max
+    (exact) and the sum over the blocks in block order."""
+    home = xm.device
+    parts = [p.to(home) for p in xm.map(
+        lambda blk, j: torch.stack([blk.abs().amax(dim=-1), (blk * blk).sum(dim=-1)]))]
+    sum_sq = parts[0][1]
+    for p in parts[1:]:
+        sum_sq = sum_sq + p[1]
+    return torch.stack([p[0] for p in parts]).amax(dim=0), sum_sq
+
+
+def normalize(samples, lengths: torch.Tensor, method: NormalizationMethod,
               sample_rate: float, target_loudness_lufs: float = -14.0,
               max_headroom_db: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Normalize ``[B, T]`` tracks; returns (samples, metadata). The metadata
     holds ``peak_db``, ``rms_db``, ``gain_db`` and ``measured_lufs`` as [B]
     arrays, -inf where undefined. Silent tracks keep gain 1
-    (normalization.rs:275-283); samples beyond a track's length are zeroed."""
-    valid = masked.length_mask(lengths, samples.shape[1])
-    xm = torch.where(valid, samples, 0.0)
-    peak = xm.abs().amax(dim=-1)
-    n = lengths.clamp_min(1).to(samples.dtype)
-    rms = torch.sqrt((xm * xm).sum(dim=-1) / n)
+    (normalization.rs:275-283); samples beyond a track's length are zeroed.
+    ``samples`` may be a tracks shard's ``TimeBlocks``, normalized block by
+    block and returned as such."""
+    blocked = not torch.is_tensor(samples)
+    if blocked:
+        xm = samples.masked(lengths)
+        peak, sum_sq = _peak_and_sum_squares(xm)
+    else:
+        valid = masked.length_mask(lengths, samples.shape[1])
+        xm = torch.where(valid, samples, 0.0)
+        peak, sum_sq = xm.abs().amax(dim=-1), (xm * xm).sum(dim=-1)
+    n = lengths.clamp_min(1).to(peak.dtype)
+    rms = torch.sqrt(sum_sq / n)
     peak_db = torch.where(peak > EPSILON, _db(peak), float("-inf"))
     safe = peak.clamp_min(EPSILON)
     no_lufs = torch.full_like(peak, float("-inf"))
@@ -170,8 +237,12 @@ def normalize(samples: torch.Tensor, lengths: torch.Tensor, method: Normalizatio
     else:  # pragma: no cover - exhaustive enum
         raise ValueError(f"unknown normalization method {method}")
 
-    out = torch.where(valid, samples * gain[:, None], 0.0)
-    rms_out = torch.sqrt((out * out).sum(dim=-1) / n)
+    if blocked:
+        out = xm.replace(xm.map(lambda blk, j: blk * gain.to(blk.device)[:, None]))
+        rms_out = torch.sqrt(_peak_and_sum_squares(out)[1] / n)
+    else:
+        out = torch.where(valid, samples * gain[:, None], 0.0)
+        rms_out = torch.sqrt((out * out).sum(dim=-1) / n)
     meta = {
         "peak_db": peak_db,
         "rms_db": torch.where(rms_out > EPSILON, _db(rms_out), float("-inf")),

@@ -23,9 +23,12 @@ def detect_and_trim(samples: torch.Tensor, lengths: torch.Tensor, sample_rate: i
     the first loud frame when the track opens silent, trim_end the start of
     the trailing silent run; an all-silent track gets length 0.
 
-    With a ``(tracks, time)`` ``mesh`` the frame RMS runs in time blocks
-    (``parallel.timeblocks``, ``T // hop`` frames); the trim shift runs on
-    the whole rows.
+    With a ``(tracks, time)`` ``mesh``, ``samples`` is a tracks shard's
+    ``parallel.timeblocks.TimeBlocks``: the frame RMS runs in time blocks
+    (``T // hop`` frames) and the result comes back as blocks, in the JAX
+    package's tiers: unchanged where no track trims, each block masked where
+    only trailing silence trims, and shifted block by block
+    (``TimeBlocks.shifted``) where any track has leading silence.
     """
     b, t = samples.shape
     hop = frame_size // 2  # 50% overlap
@@ -58,9 +61,16 @@ def detect_and_trim(samples: torch.Tensor, lengths: torch.Tensor, sample_rate: i
     trim_start = torch.minimum(trim_start, trim_end)
     new_lengths = trim_end - trim_start
 
+    info = {"trim_start": trim_start, "trim_end": trim_end, "all_silent": ~any_loud}
     # Shift each track's kept region to index 0 (one host read of B offsets).
+    if not torch.is_tensor(samples):
+        starts, kept, full = torch.stack([trim_start, new_lengths, lengths]).tolist()
+        if any(starts):
+            return samples.shifted(starts, kept), new_lengths, info
+        if kept != full:
+            return samples.masked(new_lengths), new_lengths, info
+        return samples, new_lengths, info
     out = torch.zeros_like(samples)
     for i, (st, n) in enumerate(zip(trim_start.tolist(), new_lengths.tolist())):
         out[i, :n] = samples[i, st:st + n]
-    info = {"trim_start": trim_start, "trim_end": trim_end, "all_silent": ~any_loud}
     return out, new_lengths, info

@@ -17,6 +17,8 @@ import math
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from .synth import click_track, kick_pattern
 
@@ -114,6 +116,29 @@ def silence_sandwich(silence_s: float = 5.0, audio_s: float = 5.0,
     t = torch.arange(int(audio_s * sample_rate), dtype=torch.float64, device=device) / sample_rate
     tone = (amplitude * torch.sin(2 * math.pi * tone_hz * t)).to(torch.float32)
     return torch.cat([sil, tone, sil])
+
+
+class AllocationRecorder(TorchDispatchMode):
+    """Within ``with AllocationRecorder() as rec:``, ``rec.largest`` is the
+    longest axis of any tensor an op allocated, as ``(length, op, shape)``:
+    an op's output that shares no storage with its inputs (a view, or the
+    caller's own input, is no allocation). A time-blocked run holds it to a
+    block and its context, where a whole row would be longer."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = (0, "", ())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        inputs = {t.untyped_storage().data_ptr() for t in tree_leaves((args, kwargs))
+                  if isinstance(t, torch.Tensor)}
+        for t in tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.numel()
+                    and t.untyped_storage().data_ptr() not in inputs
+                    and max(t.shape, default=1) > self.largest[0]):
+                self.largest = (max(t.shape, default=1), str(func), tuple(t.shape))
+        return out
 
 
 def pad_batch(tracks, pad_to: int | None = None):

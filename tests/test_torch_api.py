@@ -32,11 +32,11 @@ PORT_ONLY = {"analyze_batch": {"device", "debug_stop_after"},
              "stage_timings": {"device"}}
 
 # JAX subpackages whose __init__ exports names, and the port's twins.
-# Left out: ``ml`` (placeholders that raise; not ported) and the root
-# package (its names are held by tests/test_torch_config.py).
+# Left out: the root package (its names are held by
+# tests/test_torch_config.py).
 SUBPACKAGES = ("analysis", "features", "features.beat", "features.chroma", "features.key",
-               "features.onset", "features.period", "io", "ops", "parallel", "preprocessing",
-               "testing")
+               "features.onset", "features.period", "io", "ml", "ops", "parallel",
+               "preprocessing", "testing")
 # The scale-out's functions (``parallel/mesh.py``, ``parallel/timeblocks.py``):
 # the JAX parameters in the JAX order, kinds and defaults, and no other
 PARALLEL_FUNCTIONS = ("mesh.make_mesh", "mesh.pad_batch_for_mesh", "mesh.analyze_batch_sharded",
@@ -147,7 +147,32 @@ def test_every_jax_subpackage_is_listed_or_left_out_with_a_reason():
 
     found = {m.name.removeprefix("stratum_dsp_tpu.") for m in
              pkgutil.walk_packages(stratum_dsp_tpu.__path__, "stratum_dsp_tpu.") if m.ispkg}
-    assert found - set(SUBPACKAGES) == {"cli", "ml"}  # cli's __init__ is empty
+    assert found - set(SUBPACKAGES) == {"cli"}  # cli's __init__ is empty
+
+
+@pytest.mark.parametrize("call", ["OnnxModel.load", "OnnxModel.infer", "MlRefinement.refine_bpm",
+                                  "MlRefinement.refine_key"])
+def test_ml_stubs_raise_as_the_jax_ones_do(call):
+    """The Phase-2 ML placeholders raise the same error, each package its
+    own ``errors.NotImplementedYet``, with the same message; the edge-case
+    detector finds nothing in both."""
+    from stratum_dsp_tpu import errors as jerrors
+    from stratum_dsp_tpu import ml as jml
+
+    from stratum_dsp_tpu_torch import errors as perrors
+    from stratum_dsp_tpu_torch import ml as pml
+
+    cls, method = call.split(".")
+    messages = []
+    for ml, err in ((jml, jerrors.NotImplementedYet), (pml, perrors.NotImplementedYet)):
+        target = getattr(ml, cls).load if method == "load" else getattr(
+            getattr(ml, cls)("model.onnx") if cls == "OnnxModel" else getattr(ml, cls)(), method)
+        with pytest.raises(err) as exc:
+            target("model.onnx") if method == "load" else target({})
+        messages.append(str(exc.value))
+    assert messages[0] == messages[1]
+    assert pml.detect_edge_cases({}) == jml.detect_edge_cases({}) == []
+    assert pml.OnnxModel("m.onnx").path == "m.onnx"
 
 
 SCRIPT = r"""
