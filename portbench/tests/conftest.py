@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: no card, no nvcc. Run from the repository's
+root: ``python -m pytest portbench/tests -q``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
