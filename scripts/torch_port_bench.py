@@ -16,9 +16,6 @@ comes from here. Run from the repository root on a machine with a card:
   python3 scripts/torch_port_bench.py batches
       the default config on 40 tracks x 180 s, clean and adversarial mixes:
       a warm-up and five timed batches each, median and spread of tracks/s.
-  python3 scripts/torch_port_bench.py profile
-      one adversarial batch under ``torch.profiler``: device time by kernel
-      and the card's busy share of the wall.
   python3 scripts/torch_port_bench.py probe
       build the kernels with ``-DSTRATUM_PROBE`` (a library of its own) and
       print, for kernels B and C on each of their inputs, the SM clock cycles
@@ -101,7 +98,9 @@ def run_kernels(sweep: bool) -> dict:
     measure = load_measure()
     cuda_time_ms, D_VARIANTS = measure.cuda_time_ms, measure.D_VARIANTS
     dev = torch.device("cuda:0")
-    _, build_s = cuda_build.build(verbose=True)
+    t0 = time.perf_counter()
+    cuda_build.build(verbose=True)
+    build_s = time.perf_counter() - t0
     a_args, (spec, prev2, tables) = measure.kernel_inputs(dev)
     result = {"build_s": build_s}
 
@@ -237,41 +236,6 @@ def run_opt_in(tracks: int, names) -> dict:
     return result
 
 
-def run_profile() -> dict:
-    import torch
-    import stratum_dsp_tpu_torch as port
-    from torch.profiler import ProfilerActivity, profile
-
-    dev = torch.device("cuda:0")
-    measure = load_measure()
-    mixes, lengths = measure.real_size_mixes(dev)
-    batch = mixes["adversarial"]
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        port.analyze_batch(batch, lengths, port.AnalysisConfig(), device=dev)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        port.analyze_batch(batch, lengths, port.AnalysisConfig(), device=dev)
-        torch.cuda.synchronize()
-        profiled_wall = time.perf_counter() - t0
-    rows = [(e.key, getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0),
-             e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
-    rows.sort(key=lambda r: -r[1])
-    total_ms = sum(r[1] for r in rows) / 1000.0
-    return {"unprofiled_walls_s": [round(w, 4) for w in walls[1:]],
-            "profiled_wall_s": round(profiled_wall, 4), "device_ms": total_ms,
-            "busy_share_of_unprofiled_wall": total_ms / 1000.0 / float(np.median(walls[1:])),
-            "port_kernels": [{"name": n[:60], "ms": t / 1000.0, "count": c} for n, t, c in rows
-                             if any(x in n for x in ("polyphase_stage2", "fused_novelty",
-                                                     "downbeat_mask", "viterbi"))],
-            "top_kernels": [{"name": n[:80], "ms": t / 1000.0, "count": c}
-                            for n, t, c in rows[:10]]}
-
-
 def run_probe() -> dict:
     """Cycles per phase of kernels B and C, from the stamps of a probe build."""
     import ctypes
@@ -332,8 +296,7 @@ def run_compare(parent: Path, timeout: int, modes) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=["kernels", "batches", "profile", "probe", "optin",
-                                         "compare"])
+    parser.add_argument("mode", choices=["kernels", "batches", "probe", "optin", "compare"])
     parser.add_argument("--tracks", type=int, default=40, help="optin: tracks in the batch")
     parser.add_argument("--configs", default="hpss,tuned-exact,log-frequency",
                         help="optin: comma-separated names of measure.OPT_IN_CONFIGS")
@@ -361,7 +324,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     result = {"kernels": lambda: run_kernels(args.sweep), "batches": run_batches,
-              "profile": run_profile, "probe": run_probe,
+              "probe": run_probe,
               "optin": lambda: run_opt_in(args.tracks, args.configs.split(","))}[args.mode]()
     print(json.dumps({"mode": args.mode, "tree": str(args.tree), "card": card(), **result}),
           flush=True)

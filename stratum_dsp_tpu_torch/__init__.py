@@ -37,6 +37,7 @@ from .result import (
     TempoCandidateDebug,
 )
 
+from . import tracing
 from .analysis.pipeline import (
     SLICE_CONFIG,
     PipelineCaps,
@@ -54,6 +55,8 @@ KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_featur
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count and every counter of
+    ``tracing`` to 0, and drop the spans it recorded."""
     for fn in KERNELS:
         fn.launches = 0
+    tracing.reset()

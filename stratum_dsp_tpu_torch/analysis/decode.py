@@ -12,6 +12,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import tracing
 from ..result import AnalysisMetadata, AnalysisResult, BeatGrid, Key, TempoCandidateDebug
 
 SIG_NAMES = {0: "4/4", 1: "3/4", 2: "6/8"}
@@ -22,7 +23,9 @@ def one_copy(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     are packed into one byte buffer where they lie (widest elements first, so
     that every entry starts aligned to its type) and cut apart on the host."""
     packed = sorted(tensors.items(), key=lambda kv: -kv[1].element_size())
-    flat = torch.cat([v.contiguous().reshape(-1).view(torch.uint8) for _, v in packed]).cpu()
+    flat = torch.cat([v.contiguous().reshape(-1).view(torch.uint8) for _, v in packed])
+    with tracing.host_read("results"):
+        flat = flat.cpu()
     host, offset = {}, 0
     for k, v in packed:
         n = v.numel() * v.element_size()

@@ -25,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import AnalysisConfig
 from .decode import to_host
 from .pipeline import STAGES, PipelineCaps, analyze_batch
@@ -36,7 +37,8 @@ def _wait(out: Dict[str, torch.Tensor]) -> None:
     """Return when every tensor of ``out`` is computed."""
     devices = {v.device for v in out.values() if v.device.type == "cuda"}
     for dev in devices:
-        torch.cuda.synchronize(dev)
+        with tracing.host_read("timing.wait"):
+            torch.cuda.synchronize(dev)
 
 
 def analyze_batch_timed(samples, lengths, cfg: AnalysisConfig = AnalysisConfig(),

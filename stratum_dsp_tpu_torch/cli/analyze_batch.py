@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import contextvars
 import json
 import sys
 import threading
@@ -24,6 +25,7 @@ from queue import Queue
 
 import numpy as np
 
+from .. import tracing
 from ..analysis import PipelineCaps, analyze_batch_timed, decode_results
 from ..io.decode import decode_batch
 from .args import add_config_flags, add_device_flag, config_from_args, setup_logging
@@ -75,43 +77,51 @@ def main(argv=None) -> int:
     def decoder():
         for chunk in chunks:
             paths = [args.paths[i] for i in chunk]
-            decode_q.put((chunk, decode_batch(paths, target_sr=sr,
-                                              n_threads=args.decode_threads)))
+            with tracing.span("cli.decode", files=len(paths)):
+                decoded = decode_batch(paths, target_sr=sr, n_threads=args.decode_threads)
+            decode_q.put((chunk, decoded))
         decode_q.put(None)
-
-    threading.Thread(target=decoder, daemon=True).start()
 
     n_ok = 0
     with contextlib.ExitStack() as stack:
+        stack.enter_context(tracing.span("cli.batch", files=len(args.paths)))
+        # the decode thread runs in a copy of this context: its spans are the
+        # batch's children
+        threading.Thread(target=contextvars.copy_context().run, args=(decoder,),
+                         daemon=True).start()
         out_fh = sys.stdout if args.output == "-" else stack.enter_context(
             open(args.output, "w"))
         while True:
-            item = decode_q.get()
+            with tracing.span("cli.wait"):
+                item = decode_q.get()
             if item is None:
                 break
             chunk, decoded = item
             # split by padded bucket length so batch shapes stay bounded
-            sub: dict[int, list[int]] = {}
-            for j, (samples, _sr, err) in enumerate(decoded):
-                if err is not None or samples is None or samples.size == 0:
-                    rec = {"file": args.paths[chunk[j]], "error": err or "empty audio"}
-                    out_fh.write(json.dumps(rec) + "\n")
-                    continue
-                sub.setdefault(bucket_for(len(samples), sr), []).append(j)
+            with tracing.span("cli.assemble"):
+                sub: dict[int, list[int]] = {}
+                for j, (samples, _sr, err) in enumerate(decoded):
+                    if err is not None or samples is None or samples.size == 0:
+                        rec = {"file": args.paths[chunk[j]], "error": err or "empty audio"}
+                        out_fh.write(json.dumps(rec) + "\n")
+                        continue
+                    sub.setdefault(bucket_for(len(samples), sr), []).append(j)
             for bucket_len, js in sorted(sub.items()):
-                b = len(js)
-                batch = np.zeros((b, bucket_len), np.float32)
-                lengths = np.zeros((b,), np.int32)
-                for k, j in enumerate(js):
-                    s = decoded[j][0][:bucket_len]
-                    batch[k, : len(s)] = s
-                    lengths[k] = len(s)
+                with tracing.span("cli.assemble"):
+                    b = len(js)
+                    batch = np.zeros((b, bucket_len), np.float32)
+                    lengths = np.zeros((b,), np.int32)
+                    for k, j in enumerate(js):
+                        s = decoded[j][0][:bucket_len]
+                        batch[k, : len(s)] = s
+                        lengths[k] = len(s)
                 out = analyze_batch_timed(batch, lengths, cfg, sr, caps, device=args.device)
-                results = decode_results(out, sr)
-                for k, j in enumerate(js):
-                    rec = {"file": args.paths[chunk[j]], **results[k].to_dict()}
-                    out_fh.write(json.dumps(rec) + "\n")
-                    n_ok += 1
+                with tracing.span("cli.results"):
+                    results = decode_results(out, sr)
+                    for k, j in enumerate(js):
+                        rec = {"file": args.paths[chunk[j]], **results[k].to_dict()}
+                        out_fh.write(json.dumps(rec) + "\n")
+                        n_ok += 1
 
     wall = time.time() - t_start
     print(f"analyzed {n_ok}/{len(args.paths)} tracks in {wall:.1f}s "

@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 
+from .. import tracing
 from ..analysis import PipelineCaps, analyze_batch_timed, decode_results
 from ..analysis.debug import emit_debug_dump
 from ..io.decode import MIX_AVERAGE, MIX_DOMINANT, decode_file
@@ -46,7 +47,8 @@ def main(argv=None) -> int:
     mix = MIX_DOMINANT if args.mix_mode == "dominant" else MIX_AVERAGE
 
     t0 = time.time()
-    samples, sr = decode_file(args.path, args.target_sample_rate, mix)
+    with tracing.span("cli.decode", files=1):
+        samples, sr = decode_file(args.path, args.target_sample_rate, mix)
     if samples.size == 0:
         print(json.dumps({"error": "empty audio"}), file=sys.stderr)
         return 1

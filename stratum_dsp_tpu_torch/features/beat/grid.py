@@ -9,6 +9,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import tracing
 from ...ops import masked
 from ...ops.downbeats import downbeat_mask
 from ...ops.masked import fma
@@ -33,7 +34,9 @@ class BeatGridTensor(NamedTuple):
 
 
 def _beats_per_bar(sig_index):
-    return torch.as_tensor(ts.BEATS_PER_BAR, device=sig_index.device)[sig_index]
+    with tracing.host_read("grid.beats_per_bar"):
+        beats_per_bar = torch.as_tensor(ts.BEATS_PER_BAR, device=sig_index.device)
+    return beats_per_bar[sig_index]
 
 
 def detect_downbeats(times, n_beats, bpm, sig_index):

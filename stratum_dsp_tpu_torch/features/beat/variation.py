@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ... import tracing
 from ...ops.masked import cdiv, rdiv
 from .hmm import EMISSION_SIGMA, EMISSION_THRESHOLD, TIMING_TOLERANCE_S, BeatTensor
 
@@ -86,7 +87,9 @@ def refine_beats(beats: BeatTensor, nominal_bpm, bpm_confidence, onset_times, on
             torch.where(beats.valid, beats.confidence, 0.0), beats.valid)
     times, conf, valid = (F.pad(x, (0, n_out - mb)) for x in orig)
 
-    if bool(has_variation.any()):  # the reference refines only on variation
+    with tracing.host_read("variation.any"):
+        refine = bool(has_variation.any())
+    if refine:  # the reference refines only on variation
         seg_times, seg_conf, seg_valid = _refine_segments(
             bt, bconf, ot, n_onsets, nominal_bpm, start, end, i0, i1, is_var_all, seg_ok,
             seg_beat_cap)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ... import tracing
 from ...ops import masked
 from .postprocess import l2_normalize_zero
 
@@ -216,7 +217,9 @@ def frames_to_hpcp(spec, sample_rate: int, fft_size: int, sigma: float, tuning_o
     # interior of the full spectrum: bins 1 .. n_bins - 2
     static_ok = ((np.arange(hi_bin) >= 1) & (np.arange(hi_bin) < n_bins - 1)
                  & (freqs >= fmin) & (freqs <= fmax))
-    peak_ok = torch.as_tensor(static_ok, device=spec.device) & (sel > prev) & (sel >= nxt)
+    with tracing.host_read("chroma.peak_band"):
+        static_ok = torch.as_tensor(static_ok, device=spec.device)
+    peak_ok = static_ok & (sel > prev) & (sel >= nxt)
     k_top = max(min(peaks_per_frame, hi_bin), 1)
     peak_vals = torch.where(peak_ok, sel, float("-inf"))
     raw = spec_b.clamp_min(0.0)
@@ -240,9 +243,10 @@ def frames_to_hpcp(spec, sample_rate: int, fft_size: int, sigma: float, tuning_o
             m = hpcp_harmonic_matrix_dynamic(sample_rate, fft_size, hi_bin, sigma, tuning_offset,
                                              num_harmonics, harmonic_decay, fmin, fmax)
         else:
-            m = torch.as_tensor(hpcp_harmonic_matrix(
-                sample_rate, fft_size, hi_bin, sigma, float(tuning_offset), num_harmonics,
-                harmonic_decay, fmin, fmax), device=spec.device)
+            with tracing.host_read("chroma.hpcp_matrix"):
+                m = torch.as_tensor(hpcp_harmonic_matrix(
+                    sample_rate, fft_size, hi_bin, sigma, float(tuning_offset), num_harmonics,
+                    harmonic_decay, fmin, fmax), device=spec.device)
         return l2_normalize_zero(torch.matmul(w_bins.to(torch.float32), m))
 
     # exact top-k: the larger of each (even, odd) bin pair first (two

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ... import tracing
 from ...config import AnalysisConfig, TemplateSet
 
 from . import scoring
@@ -32,7 +33,9 @@ class KeyResult(NamedTuple):
 
 
 def _templates(cfg: AnalysisConfig, device, template_set: Optional[TemplateSet] = None):
-    return torch.as_tensor(key_templates(template_set or cfg.key_template_set), device=device)
+    with tracing.host_read("key.templates"):
+        return torch.as_tensor(key_templates(template_set or cfg.key_template_set),
+                               device=device)
 
 
 def _weighted(chroma, weights, frame_mask):

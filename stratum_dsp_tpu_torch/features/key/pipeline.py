@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ... import tracing
 from ...config import AnalysisConfig
 
 from ...ops import masked
@@ -323,62 +324,67 @@ def detect_key_batch(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
     stream = dict(mesh=mesh, chunk_frames=_auto_chunk(b, _key_stft_params(cfg)[0], 512))
     tuning = 0.0
     if cfg.enable_key_tuning_compensation and not cfg.enable_key_log_frequency:
-        tuning = estimate_tuning_streamed(samples, lengths, cfg, sample_rate, **stream)
+        with tracing.span("key.tuning"):
+            tuning = estimate_tuning_streamed(samples, lengths, cfg, sample_rate, **stream)
     hpss_mask = None
     if cfg.enable_key_hpss_harmonic:
-        hpss_mask = collect_hpss_mask(samples, lengths, cfg, sample_rate, **stream)
+        with tracing.span("key.hpss_mask"):
+            hpss_mask = collect_hpss_mask(samples, lengths, cfg, sample_rate, **stream)
 
-    if (cfg.enable_key_beat_synchronous and not cfg.enable_key_log_frequency
-            and beat_times is not None):
-        # per-frame plain chroma, not HPCP (extractor.rs:884-891)
-        fchroma, fenergy, frame_counts = extract_key_features(
-            samples, lengths, cfg.replace(enable_key_hpcp=False), sample_rate, tuning, hpss_mask,
-            **stream)
-        frame_rate = sample_rate / _key_stft_params(cfg)[1]
-        fval = masked.length_mask(frame_counts, fchroma.shape[1])
-        chroma, energy, interval_valid = chx.beat_synchronous_chroma(
-            fchroma, fenergy, fval, beat_times, beat_valid, frame_rate)
-        # the intervals become the frames, the valid ones first
-        frame_counts = interval_valid.sum(dim=-1)
-        order = torch.sort((~interval_valid).to(torch.uint8), dim=-1, stable=True).indices
-        chroma = torch.gather(chroma, 1, order[..., None].expand(chroma.shape))
-        energy = torch.gather(energy, 1, order)
-    else:
-        chroma, energy, frame_counts = extract_key_features(samples, lengths, cfg, sample_rate,
-                                                            tuning, hpss_mask, **stream)
-    f = chroma.shape[1]
-    fvalid = masked.length_mask(frame_counts, f)
-    if cfg.chroma_sharpening_power > 1.0:
-        chroma = torch.where(fvalid[..., None],
-                             sharpen_chroma(chroma, cfg.chroma_sharpening_power), 0.0)
-    # temporal median, window 5, only with more than 5 frames (lib.rs:1211-1213)
-    smoothed = smooth_chroma_median(chroma, frame_counts, 5)
-    chroma = torch.where((frame_counts > 5)[:, None, None], smoothed, chroma)
-
-    if cfg.enable_key_edge_trim:
-        frac = float(np.clip(cfg.key_edge_trim_fraction, 0.0, 0.49))
-        n = frame_counts.to(torch.float32)
-        start = torch.round(n * frac).to(torch.int64)
-        end = torch.round(n * (1.0 - frac)).to(torch.int64)
-        do = (frame_counts >= 200) & (end > start + 50) & (end <= frame_counts)
-        start = torch.where(do, start, 0)
-        frame_counts = torch.where(do, end - start, frame_counts)
+    beat_sync = (cfg.enable_key_beat_synchronous and not cfg.enable_key_log_frequency
+                 and beat_times is not None)
+    with tracing.span("key.stft"):
+        # per-frame plain chroma, not HPCP, for the beat-synchronous path
+        # (extractor.rs:884-891)
+        chroma, energy, frame_counts = extract_key_features(
+            samples, lengths, cfg.replace(enable_key_hpcp=False) if beat_sync else cfg,
+            sample_rate, tuning, hpss_mask, **stream)
+    with tracing.span("key.chroma"):
+        if beat_sync:
+            frame_rate = sample_rate / _key_stft_params(cfg)[1]
+            fval = masked.length_mask(frame_counts, chroma.shape[1])
+            chroma, energy, interval_valid = chx.beat_synchronous_chroma(
+                chroma, energy, fval, beat_times, beat_valid, frame_rate)
+            # the intervals become the frames, the valid ones first
+            frame_counts = interval_valid.sum(dim=-1)
+            order = torch.sort((~interval_valid).to(torch.uint8), dim=-1, stable=True).indices
+            chroma = torch.gather(chroma, 1, order[..., None].expand(chroma.shape))
+            energy = torch.gather(energy, 1, order)
+        f = chroma.shape[1]
         fvalid = masked.length_mask(frame_counts, f)
-        chroma = torch.where(fvalid[..., None], _shift_frames(chroma, start), 0.0)
-        energy = torch.where(fvalid, _shift_frames(energy, start), 0.0)
+        if cfg.chroma_sharpening_power > 1.0:
+            chroma = torch.where(fvalid[..., None],
+                                 sharpen_chroma(chroma, cfg.chroma_sharpening_power), 0.0)
+        # temporal median, window 5, only with more than 5 frames (lib.rs:1211-1213)
+        smoothed = smooth_chroma_median(chroma, frame_counts, 5)
+        chroma = torch.where((frame_counts > 5)[:, None, None], smoothed, chroma)
 
-    weights = key_frame_weights(chroma, energy, fvalid, cfg)
-    frame_mask = fvalid.to(chroma.dtype)
-    if cfg.enable_key_ensemble:
-        res = detector.detect_key_ensemble(chroma, weights, frame_mask, cfg)
-    elif cfg.enable_key_multi_scale and cfg.key_multi_scale_lengths:
-        res = detector.detect_key_multi_scale(chroma, weights, frame_mask, frame_counts, cfg)
-    elif cfg.enable_key_segment_voting:
-        res = detector.detect_key_segment_voting(chroma, weights, frame_mask, frame_counts, cfg)
-    elif cfg.enable_key_median:
-        res = detector.detect_key_median(chroma, weights, frame_mask, frame_counts, cfg)
-    else:
-        res = detector.detect_key_weighted(chroma, weights, frame_mask, cfg)
+        if cfg.enable_key_edge_trim:
+            frac = float(np.clip(cfg.key_edge_trim_fraction, 0.0, 0.49))
+            n = frame_counts.to(torch.float32)
+            start = torch.round(n * frac).to(torch.int64)
+            end = torch.round(n * (1.0 - frac)).to(torch.int64)
+            do = (frame_counts >= 200) & (end > start + 50) & (end <= frame_counts)
+            start = torch.where(do, start, 0)
+            frame_counts = torch.where(do, end - start, frame_counts)
+            fvalid = masked.length_mask(frame_counts, f)
+            chroma = torch.where(fvalid[..., None], _shift_frames(chroma, start), 0.0)
+            energy = torch.where(fvalid, _shift_frames(energy, start), 0.0)
+
+        weights = key_frame_weights(chroma, energy, fvalid, cfg)
+        frame_mask = fvalid.to(chroma.dtype)
+    with tracing.span("key.score"):
+        if cfg.enable_key_ensemble:
+            res = detector.detect_key_ensemble(chroma, weights, frame_mask, cfg)
+        elif cfg.enable_key_multi_scale and cfg.key_multi_scale_lengths:
+            res = detector.detect_key_multi_scale(chroma, weights, frame_mask, frame_counts, cfg)
+        elif cfg.enable_key_segment_voting:
+            res = detector.detect_key_segment_voting(chroma, weights, frame_mask, frame_counts,
+                                                     cfg)
+        elif cfg.enable_key_median:
+            res = detector.detect_key_median(chroma, weights, frame_mask, frame_counts, cfg)
+        else:
+            res = detector.detect_key_weighted(chroma, weights, frame_mask, cfg)
     # a track too short for one frame: the default key, zero confidence
     ok = frame_counts > 0
     return KeyResult(key_idx=torch.where(ok, res.key_idx, 0),

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from ... import tracing
+
 EPSILON = 1e-9
 CIRCLE_OF_FIFTHS = (0, 7, 2, 9, 4, 11, 6, 1, 8, 3, 10, 5)
 CIRCLE_BONUS_WEIGHT = 0.20
@@ -54,7 +56,8 @@ def finalize_scores(scores):
     do_norm = (max_major > EPSILON) & (max_minor > EPSILON)
     major = torch.where(do_norm, major / max_major.clamp_min(EPSILON), major)
     minor = torch.where(do_norm, minor / max_minor.clamp_min(EPSILON), minor)
-    bonus = torch.as_tensor(cof_bonus_matrix(), device=scores.device)
+    with tracing.host_read("key.fifths_bonus"):
+        bonus = torch.as_tensor(cof_bonus_matrix(), device=scores.device)
     top_major = major.amax(dim=-1, keepdim=True)
     top_minor = minor.amax(dim=-1, keepdim=True)
     major = major + torch.where(top_major > EPSILON, top_major * bonus[stable_argmax(major)], 0.0)

@@ -11,6 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import tracing
 from ...config import AnalysisConfig
 
 from .tempogram_fft import next_pow2
@@ -79,11 +80,14 @@ def autocorr_candidates(onset_pos, onset_valid, t_padded: int, sample_rate: int,
     bpm_np = (60.0 * sample_rate) / (lags_np * hop)
     static_ok = ((np.arange(n_sl) >= 1) & (np.arange(n_sl) < n_sl - 1)
                  & (bpm_np >= min_bpm) & (bpm_np <= max_bpm))
-    is_peak = (torch.as_tensor(static_ok, device=dev) & (sl > prev) & (sl > nxt)
+    with tracing.host_read("legacy.autocorr_tables"):
+        static_ok = torch.as_tensor(static_ok, device=dev)
+        bpm_t = torch.as_tensor(bpm_np, device=dev)
+    is_peak = (static_ok & (sl > prev) & (sl > nxt)
                & (sl - torch.maximum(prev, nxt) >= 0.1 * max_sl) & (max_sl >= EPSILON))
     conf = (sl / acf.amax(dim=-1, keepdim=True).clamp_min(EPSILON)).clamp_max(1.0)
     is_peak = is_peak & (onset_valid.sum(dim=-1) >= 2)[:, None]
-    return _sort_by_confidence(torch.as_tensor(bpm_np, device=dev), conf, is_peak)
+    return _sort_by_confidence(bpm_t, conf, is_peak)
 
 
 def comb_candidates(onset_pos, onset_valid, t_padded: int, sample_rate: int, min_bpm: float,
@@ -99,7 +103,8 @@ def comb_candidates(onset_pos, onset_valid, t_padded: int, sample_rate: int, min
     period = 60.0 * sample_rate / grid
     tol = np.clip(COMB_DEFAULT_TOLERANCE * (COMB_REFERENCE_BPM / grid), COMB_MIN_TOLERANCE,
                   COMB_MAX_TOLERANCE) * period
-    period_t = torch.as_tensor(period, device=dev)
+    with tracing.host_read("legacy.comb_tables"):
+        period_t, tol_t, grid_t = (torch.as_tensor(a, device=dev) for a in (period, tol, grid))
     sorted_pos = torch.sort(torch.where(onset_valid, onset_pos, INT_BIG), dim=-1).values
     sorted_pos = sorted_pos.to(torch.float32)
     n_valid = onset_valid.sum(dim=-1)
@@ -110,7 +115,7 @@ def comb_candidates(onset_pos, onset_valid, t_padded: int, sample_rate: int, min
     pj = period_t[None, :, None]
     k_idx = torch.round(o / pj).to(torch.int64)
     d = (o - k_idx.to(torch.float32) * pj).abs()
-    hit = (d <= torch.as_tensor(tol, device=dev)[None, :, None]) & ovalid[:, None, :]
+    hit = (d <= tol_t[None, :, None]) & ovalid[:, None, :]
     k_hit = torch.where(hit, k_idx, -1)
     k_prev = torch.cat([torch.full_like(k_hit[..., :1], -1),
                         torch.cummax(k_hit, dim=2).values[..., :-1]], dim=-1)
@@ -123,7 +128,7 @@ def comb_candidates(onset_pos, onset_valid, t_padded: int, sample_rate: int, min
     max_score = score.amax(dim=-1, keepdim=True)
     conf = torch.where(max_score > EPSILON, score / max_score.clamp_min(EPSILON), 0.0)
     valid = (conf >= 0.1) & enough[:, None]
-    return _sort_by_confidence(torch.as_tensor(grid, device=dev), conf, valid)
+    return _sort_by_confidence(grid_t, conf, valid)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:

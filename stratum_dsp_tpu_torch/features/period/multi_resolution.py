@@ -21,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ... import tracing
 from ...config import AnalysisConfig
 
 from ...ops import masked
@@ -204,24 +205,38 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
     top_k = max(cfg.tempogram_multi_res_top_k, 1)
     aux_k = int(np.clip(top_k * 4, 25, 200))
     tol = max(2.0, cfg.bpm_resolution)
+
+    with tracing.span("multires.hop256"):
+        c256, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 256, aux_k, mesh=mesh)
+    if precomputed is not None:
+        with tracing.span("multires.hop1024"):
+            c512 = {k: precomputed["est"][k][:, :top_k] for k in CAND_KEYS}
+            nov512, nval512 = precomputed["novelty_full"], precomputed["n_valid"]
+            feats1024, fc1024 = nov.decimate_features_2x(precomputed["feats"],
+                                                         precomputed["frame_counts"])
+            feats1024["band_names"] = nov.active_band_names(cfg, sample_rate, cfg.frame_size)
+            c1024, _, _ = _estimate(feats1024, fc1024, cfg, sample_rate / 1024, aux_k)
+    else:
+        with tracing.span("multires.hop512"):
+            c512, nov512, nval512 = hop_candidates(samples, lengths, cfg, sample_rate, 512,
+                                                   top_k, mesh=mesh)
+        with tracing.span("multires.hop1024"):
+            c1024, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 1024, aux_k,
+                                         mesh=mesh)
+    with tracing.span("multires.vote"):
+        return _vote(c256, c512, c1024, nov512, nval512, cfg, sample_rate, top_k, tol)
+
+
+def _vote(c256, c512, c1024, nov512, nval512, cfg: AnalysisConfig, sample_rate: int,
+          top_k: int, tol: float) -> Dict[str, torch.Tensor]:
+    """``multi_resolution_estimate``'s hypotheses over the three hops'
+    candidates: the weighted support, the margin-gated switch, the dedup,
+    the folds and the triplet-family search."""
     w512, w256, w1024 = (cfg.tempogram_multi_res_w512, cfg.tempogram_multi_res_w256,
                          cfg.tempogram_multi_res_w1024)
     dt512 = cfg.tempogram_multi_res_double_time_512_factor
     margin_threshold = cfg.tempogram_multi_res_margin_threshold
-    dev = samples.device
-
-    c256, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 256, aux_k, mesh=mesh)
-    if precomputed is not None:
-        c512 = {k: precomputed["est"][k][:, :top_k] for k in CAND_KEYS}
-        nov512, nval512 = precomputed["novelty_full"], precomputed["n_valid"]
-        feats1024, fc1024 = nov.decimate_features_2x(precomputed["feats"],
-                                                     precomputed["frame_counts"])
-        feats1024["band_names"] = nov.active_band_names(cfg, sample_rate, cfg.frame_size)
-        c1024, _, _ = _estimate(feats1024, fc1024, cfg, sample_rate / 1024, aux_k)
-    else:
-        c512, nov512, nval512 = hop_candidates(samples, lengths, cfg, sample_rate, 512, top_k,
-                                               mesh=mesh)
-        c1024, _, _ = hop_candidates(samples, lengths, cfg, sample_rate, 1024, aux_k, mesh=mesh)
+    dev = c512["cand_bpm"].device
 
     def sup(c, q):
         return tg.cand_lookup_nearest(c["cand_bpm"], c["cand_score"], c["cand_valid"], q, tol)
@@ -322,7 +337,9 @@ def multi_resolution_estimate(samples, lengths, cfg: AnalysisConfig, sample_rate
     best_score = torch.where(do_up, s_dbl, best_score)
 
     # triplet-family search (multi_resolution.rs:764-867)
-    fam_bpm = best_bpm[:, None] * torch.tensor(FAMILY_FACTORS, dtype=torch.float32, device=dev)
+    with tracing.host_read("multires.family_factors"):
+        factors = torch.tensor(FAMILY_FACTORS, dtype=torch.float32, device=dev)
+    fam_bpm = best_bpm[:, None] * factors
     fam_in = ((fam_bpm >= cfg.min_bpm) & (fam_bpm <= cfg.max_bpm) & (fam_bpm >= 70.0)
               & (fam_bpm <= 180.0))
     fs, fa = total_support(fam_bpm)

@@ -18,6 +18,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ... import tracing
 from ...config import AnalysisConfig
 
 from ...ops import masked
@@ -93,7 +94,10 @@ def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig
     use_aux = (cfg.enable_tempogram_band_fusion or cfg.enable_tempogram_mel_novelty
                or cfg.tempogram_band_consensus_bonus > 0.0)
     score_variants = [full] if (cfg.tempogram_band_seed_only or not use_aux) else variants
-    as_t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    def as_t(a):
+        with tracing.host_read("tempogram.tables"):
+            return torch.as_tensor(a, device=dev)
 
     fft_primary_bpm = as_t(full.fft_bpms)[full.fft_power.argmax(dim=-1)]
     ac_primary_bpm = as_t(full.ac_grid)[full.ac_strength.argmax(dim=-1)]

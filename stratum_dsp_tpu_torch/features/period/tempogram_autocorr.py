@@ -11,6 +11,7 @@ import functools
 import numpy as np
 import torch
 
+from ... import tracing
 from ...ops.masked import cdiv
 from .tempogram_fft import next_pow2
 
@@ -49,7 +50,8 @@ def autocorr_tempogram(novelty, nov_mask, n_valid, frame_rate: float, min_bpm: f
     lags = bpm_lags(min_bpm, max_bpm, resolution, frame_rate)
     max_lag = int(lags.max()) if len(lags) else 0
     acf = linear_autocorrelation(torch.where(nov_mask, novelty, 0.0), max_lag)
-    lag_t = torch.as_tensor(lags, device=novelty.device)
+    with tracing.host_read("autocorr.lags"):
+        lag_t = torch.as_tensor(lags, device=novelty.device)
     count = (n_valid[:, None] - lag_t[None, :]).clamp_min(0)
     strength = torch.where(count > 0, acf[:, lag_t] / count.clamp_min(1), 0.0)
     return strength, grid
@@ -61,7 +63,8 @@ def ac_lookup_nearest(strength, grid: np.ndarray, query, tol: float):
     g0 = float(grid[0])
     res = float(grid[1] - grid[0]) if len(grid) > 1 else 1.0
     idx = torch.ceil(cdiv(query - g0, res) - 0.5).to(torch.int64).clamp(0, len(grid) - 1)
-    grid_t = torch.as_tensor(grid, device=strength.device)
+    with tracing.host_read("autocorr.grid"):
+        grid_t = torch.as_tensor(grid, device=strength.device)
     ok = (grid_t[idx] - query).abs() <= tol
     vals = torch.gather(strength, -1, idx.reshape(strength.shape[0], -1)).reshape(query.shape)
     return torch.where(ok, vals, 0.0)

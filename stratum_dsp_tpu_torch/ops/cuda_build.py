@@ -17,8 +17,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
-import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -70,17 +68,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"libstratum_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> tuple:
-    """Compile the kernels if the library for the current sources is missing.
-
-    Returns ``(path, seconds)``; ``seconds`` is 0.0 when nothing was built.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report.
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if the library for the current sources is missing,
+    and return its path. ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report.
     """
     path = library_path()
     if path.exists():
-        return path, 0.0
+        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     nvcc = _nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -102,28 +98,17 @@ def build(verbose: bool = False) -> tuple:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(lib, path)
-    return path, time.perf_counter() - t0
+    return path
 
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once per process)."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(build()))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
-
-
-_LAUNCH_LOCK = threading.Lock()
-
-
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under a lock: the shards of a mesh
-    on distinct cards launch from one host thread each."""
-    with _LAUNCH_LOCK:
-        wrapper.launches += 1
 
 
 def check(rc: int, name: str) -> None:

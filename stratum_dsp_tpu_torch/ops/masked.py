@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
+
 EPSILON = 1e-10
 
 
@@ -18,7 +20,9 @@ def rdiv(num: float, x: torch.Tensor) -> torch.Tensor:
     """``num / x`` as a true division. PyTorch's ``scalar / tensor`` is
     ``x.reciprocal() * scalar``, which rounds twice and differs from the
     reference's division in the last bit."""
-    return torch.div(x.new_tensor(num), x)
+    with tracing.host_read("masked.rdiv"):
+        num = x.new_tensor(num)
+    return torch.div(num, x)
 
 
 def fma(a, b, c) -> torch.Tensor:
@@ -200,7 +204,10 @@ def valid_extent(valid: torch.Tensor) -> int:
     """Slots up to and including the last valid entry of any row (one host
     read): greedy walks stop there, since no later slot can be kept."""
     pos = torch.arange(1, valid.shape[-1] + 1, device=valid.device)
-    return int(torch.where(valid, pos, 0).amax()) if valid.numel() else 0
+    if not valid.numel():
+        return 0
+    with tracing.host_read("masked.valid_extent"):
+        return int(torch.where(valid, pos, 0).amax())
 
 
 def greedy_dedup_sorted(values: torch.Tensor, valid: torch.Tensor, tol: float) -> torch.Tensor:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from . import cuda_build, masked
 
 EPSILON = 1e-10
@@ -323,7 +324,7 @@ def fused_novelty_features(spec: torch.Tensor, prev2: torch.Tensor, tables: Nove
             tables.nm, n_edge, n_task, n_rounds, n_pack, tables.sf_k, FRAME_TILE, BLOCK_THREADS,
             flags, stream)
     cuda_build.check(rc, "fused_novelty_features")
-    cuda_build.count_launch(fused_novelty_features)
+    tracing.count_launch(fused_novelty_features)
     return out
 
 

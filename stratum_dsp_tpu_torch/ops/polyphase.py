@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from . import cuda_build
 
 KERNEL_RATIO = 16  # the frame/hop ratio R the CUDA kernel is instantiated for
@@ -135,7 +136,7 @@ def polyphase_stage2(bd: torch.Tensor, r: int, ext: int, keep_bins: int) -> torc
         rc = lib.stratum_polyphase_stage2(bd.data_ptr(), tables.data_ptr(), out.data_ptr(),
                                           b, ebp, kp, r, ext, keep_bins, FRAME_TILE, stream)
     cuda_build.check(rc, "polyphase_stage2")
-    cuda_build.count_launch(polyphase_stage2)
+    tracing.count_launch(polyphase_stage2)
     return out
 
 

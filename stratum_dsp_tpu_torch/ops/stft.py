@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from .polyphase import polyphase_stage2
 
 
@@ -41,7 +42,8 @@ def hann_window(frame_size: int, device=None) -> torch.Tensor:
     """Hann window with the reference's (n-1) denominator (extractor.rs:318)."""
     i = np.arange(frame_size, dtype=np.float64)
     w = 0.5 * (1.0 - np.cos(2.0 * np.pi * i / (frame_size - 1)))
-    return torch.as_tensor(w.astype(np.float32), device=device)
+    with tracing.host_read("stft.window"):
+        return torch.as_tensor(w.astype(np.float32), device=device)
 
 
 def extract_frames(region: torch.Tensor, n_frames: int, frame_size: int, hop: int):

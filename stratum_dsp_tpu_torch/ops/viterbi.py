@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from . import cuda_build
 
 NUM_STATES = 5
@@ -135,7 +136,7 @@ def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
         rc = lib.stratum_viterbi_decode(emissions.data_ptr(), trans.data_ptr(),
                                         states.data_ptr(), b, t, stream)
     cuda_build.check(rc, "viterbi_decode")
-    cuda_build.count_launch(viterbi_decode)
+    tracing.count_launch(viterbi_decode)
     return states
 
 

@@ -32,6 +32,7 @@ they run one after another. Several processes join through
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 import dataclasses
 import os
 from typing import Callable, Optional, Sequence
@@ -111,8 +112,9 @@ def pad_batch_for_mesh(samples, mesh: Mesh):
 def map_on_devices(fn: Callable, jobs: Sequence, devices: Sequence) -> list:
     """``[fn(job) for job in jobs]``, job ``k`` on ``devices[k]``: in one
     host thread per job when the devices are distinct CUDA devices (each
-    thread with its device current), else one after another. Every result
-    is read, so a job's exception is raised here."""
+    thread with its device current, in a copy of the caller's context, so
+    that ``tracing``'s state goes along), else one after another. Every
+    result is read, so a job's exception is raised here."""
     keys = [str(torch.device(d)) for d in devices]
     if len(jobs) < 2 or len(set(keys)) < len(keys) or any(
             torch.device(d).type != "cuda" for d in devices):
@@ -123,7 +125,8 @@ def map_on_devices(fn: Callable, jobs: Sequence, devices: Sequence) -> list:
             return fn(job)
 
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futures = [pool.submit(run, job, dev) for job, dev in zip(jobs, devices)]
+        futures = [pool.submit(contextvars.copy_context().run, run, job, dev)
+                   for job, dev in zip(jobs, devices)]
         return [f.result() for f in futures]
 
 

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..config import AnalysisConfig
 from ..features.period import novelty as nov
 from ..ops.masked import scan_sum, sqrt_f32
@@ -93,6 +94,7 @@ class TimeBlocks:
             if part.device.type == "cpu" and dev.type == "cuda":
                 staged = torch.empty(part.shape, dtype=torch.float32, pin_memory=True)
                 part = staged.copy_(part)
+                tracing.count("h2d_bytes", staged.numel() * staged.element_size())
             blocks.append(part.to(device=dev, dtype=torch.float32, non_blocking=True))
         return cls(blocks, t, t_blk, mesh)
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..config import NormalizationMethod
 from ..ops import masked
 
@@ -93,7 +94,8 @@ def k_weighting_filter(samples: torch.Tensor, sample_rate: float) -> torch.Tenso
     blk = KWEIGHT_FIR_TAPS
     nb = -(-t // blk)
     xb = F.pad(samples, (0, nb * blk - t)).reshape(b, nb, blk)
-    H = torch.as_tensor(_k_weighting_toeplitz(sample_rate, blk), device=samples.device)
+    with tracing.host_read("loudness.k_weighting"):
+        H = torch.as_tensor(_k_weighting_toeplitz(sample_rate, blk), device=samples.device)
     prev = F.pad(xb[:, :-1], (0, 0, 1, 0))
     y = torch.matmul(xb, H[blk:]) + torch.matmul(prev, H[:blk])
     return y.reshape(b, nb * blk)[:, :t]

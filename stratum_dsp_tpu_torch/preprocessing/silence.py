@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops import masked
 from ..ops.framesum import frame_rms
 
@@ -64,13 +65,16 @@ def detect_and_trim(samples: torch.Tensor, lengths: torch.Tensor, sample_rate: i
     info = {"trim_start": trim_start, "trim_end": trim_end, "all_silent": ~any_loud}
     # Shift each track's kept region to index 0 (one host read of B offsets).
     if not torch.is_tensor(samples):
-        starts, kept, full = torch.stack([trim_start, new_lengths, lengths]).tolist()
+        with tracing.host_read("silence.trim"):
+            starts, kept, full = torch.stack([trim_start, new_lengths, lengths]).tolist()
         if any(starts):
             return samples.shifted(starts, kept), new_lengths, info
         if kept != full:
             return samples.masked(new_lengths), new_lengths, info
         return samples, new_lengths, info
     out = torch.zeros_like(samples)
-    for i, (st, n) in enumerate(zip(trim_start.tolist(), new_lengths.tolist())):
+    with tracing.host_read("silence.trim"):
+        starts, kept = trim_start.tolist(), new_lengths.tolist()
+    for i, (st, n) in enumerate(zip(starts, kept)):
         out[i, :n] = samples[i, st:st + n]
     return out, new_lengths, info

@@ -25,7 +25,7 @@ from stratum_dsp_tpu.testing import c_major_scale, kick_pattern, pad_batch
 
 import stratum_dsp_tpu_torch as port
 from stratum_dsp_tpu_torch.features.period import novelty as pnov
-from stratum_dsp_tpu_torch.ops import cuda_build
+from stratum_dsp_tpu_torch import tracing
 from stratum_dsp_tpu_torch.parallel import mesh as pmesh
 from stratum_dsp_tpu_torch.parallel import timeblocks as ptb
 from stratum_dsp_tpu_torch.testing import assert_outputs_match
@@ -324,7 +324,7 @@ def test_launch_counts_hold_under_threads():
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [cuda_build.count_launch(wrapper)
+        threads = [threading.Thread(target=lambda: [tracing.count_launch(wrapper)
                                                     for _ in range(per_thread)])
                    for _ in range(n_threads)]
         for th in threads:
