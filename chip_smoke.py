@@ -73,6 +73,13 @@ one line each:
 
 Between them, the opt-in paths:
 
+* the windowed median (``ops/masked.py:window_median``, a kernel with no TPU
+  counterpart) after phase 6: both passes of an HPSS iteration at the hpss
+  cell's shape ``[16, 15500, 1025]``, the chroma smoothing's
+  ``[40, 3900, 12]`` and the general path of a wide window, each bit for bit
+  against its plain version (the ``torch.sort`` over unfolded windows, whose
+  time is the yardstick), with the kernel's time and bound;
+
 * kernel A at the log-frequency shape (every bin kept: ``keep = 4097``,
   ``KP = 4224``) at B = 40 and at ragged batches, bit for bit, and kernel D's
   auxiliary variant over a whole 180 s track ``[40, 15500, 1025]`` in one
@@ -481,7 +488,7 @@ def main() -> int:
     from stratum_dsp_tpu_torch import measure, testing
     from stratum_dsp_tpu_torch.measure import B_REAL, SECONDS_REAL, cuda_time_ms
     from stratum_dsp_tpu_torch.features.period.novelty import novelty_tables
-    from stratum_dsp_tpu_torch.ops import cuda_build, downbeats, polyphase, viterbi
+    from stratum_dsp_tpu_torch.ops import cuda_build, downbeats, masked, polyphase, viterbi
     from stratum_dsp_tpu_torch.ops import novelty as novelty_ops
     from stratum_dsp_tpu_torch.ops.downbeats import downbeat_mask, downbeat_mask_plain
     from stratum_dsp_tpu_torch.ops.novelty import (fused_novelty_features,
@@ -768,6 +775,56 @@ def main() -> int:
           f"a time; kernel {ms_d_track:.4f} ms, plain {plain_ms_d_track:.1f} ms (host clock, "
           f"{-(-frames_t // slab)} slabs), {bound_text(bound_d_track, ms_d_track)}")
 
+    # the windowed median (no TPU kernel: the JAX package sorts) at the hpss
+    # cell's shape, [16, F, 1025] of 180 s tracks, one track's frames cut to
+    # a third: both passes of an HPSS iteration at the default margin, bit
+    # for bit against the plain version, which sorts the unfolded windows
+    # with torch.sort and is the yardstick of its time; then the key path's
+    # chroma smoothing [40, 3900, 12] (window 5, element count // 2, ragged
+    # frames) and the general path of a half past the register ones
+    b_hpss, margin = 16, port.AnalysisConfig().hpss_margin
+    spec_m = measure.whole_track_spectrogram(dev)[0][:b_hpss]
+    frames_m = spec_m.shape[1]
+    counts_m = torch.full((b_hpss,), frames_m, device=dev)
+    counts_m[5] = frames_m // 3
+    ms_m, plain_ms_m, bound_m = {}, {}, {}
+    for axis, dim, nv in (("time", 1, counts_m), ("frequency", 2, None)):
+        got_m = masked.window_median(spec_m, nv, margin, True, dim)
+        torch.cuda.synchronize()
+        if not torch.equal(got_m, masked.window_median_plain(spec_m, nv, margin, True, dim)):
+            fail(f"the windowed median ({axis} axis) is not bit-equal to its plain version")
+        ms_m[axis] = cuda_time_ms(lambda: masked.window_median(spec_m, nv, margin, True, dim), 20)
+        plain_ms_m[axis] = cuda_time_ms(
+            lambda: masked.window_median_plain(spec_m, nv, margin, True, dim), 2)
+        bound_m[axis] = masked.window_median_bound_ms(
+            *masked.window_median_shape(spec_m, dim, margin), margin)
+        phase("kernel window_median",
+              f"{axis} axis of [{b_hpss},{frames_m},{spec_m.shape[2]}] f32, half {margin}, "
+              f"even counts averaged: bit-equal to the plain version; kernel {ms_m[axis]:.4f} ms, "
+              f"plain (torch.sort) {plain_ms_m[axis]:.2f} ms, "
+              f"{bound_text(bound_m[axis], ms_m[axis])}")
+    del spec_m, got_m
+    torch.cuda.empty_cache()
+    gen_m = torch.Generator(device=dev).manual_seed(14)
+    chroma_m = torch.rand((B_REAL, 3900, 12), generator=gen_m, device=dev)
+    frames_c = torch.randint(0, 3901, (B_REAL,), generator=gen_m, device=dev)
+    frames_c[:4] = torch.tensor([0, 1, 5, 3900], device=dev)
+    if not torch.equal(masked.window_median(chroma_m, frames_c, 2, False, 1),
+                       masked.window_median_plain(chroma_m, frames_c, 2, False, 1)):
+        fail("the windowed median is not bit-equal to its plain version on the chroma")
+    ms_chroma = cuda_time_ms(lambda: masked.window_median(chroma_m, frames_c, 2, False, 1), 50)
+    wide = masked.MEDIAN_REGISTER_HALF + 8
+    ties_m = torch.randint(0, 5, (4, 2000, 1025), generator=gen_m, device=dev).float() * 0.25
+    for dim in (1, 2):
+        if not torch.equal(masked.window_median(ties_m, None, wide, True, dim),
+                           masked.window_median_plain(ties_m, None, wide, True, dim)):
+            fail(f"the windowed median's general path (half {wide}) is not bit-equal on ties")
+    phase("kernel window_median",
+          f"chroma smoothing [{B_REAL},3900,12] half 2, element count // 2, ragged frames: "
+          f"bit-equal, kernel {ms_chroma:.4f} ms; general path (half {wide}) bit-equal on ties "
+          f"at [4,2000,1025] on both axes")
+    del chroma_m, ties_m
+
     # 7. fixture batches, CPU (plain versions) vs card (kernels): the slice
     # batch under SLICE_CONFIG, and under the default config a batch that
     # takes every branch of the escalation
@@ -817,15 +874,16 @@ def main() -> int:
         return -(-((n_samples - 2048) // hop + 1) // 256)
 
     def want_launches(escalated: bool, cfg_multires: bool = True, key_passes: int = 1,
-                      whole_track_d: int = 0):
+                      whole_track_d: int = 0, medians: int = 1):
         """Launches of one batch: the key STFT's 81 chunks a pass (tuning
         compensation and the HPSS harmonic mask each add a pass), one downbeat
         walk, one decode, a reducer launch per BPM chunk (and per hop-256
-        chunk when a track escalates), and one over the whole percussive
-        spectrogram where the percussive fallback is on."""
+        chunk when a track escalates), one over the whole percussive
+        spectrogram where the percussive fallback is on, and a windowed
+        median for the chroma smoothing (and two an HPSS iteration)."""
         d = n_chunks(512) + (n_chunks(256) if escalated and cfg_multires else 0) + whole_track_d
         return {"polyphase_stage2": 81 * key_passes, "downbeat_mask": 1, "viterbi_decode": 1,
-                "fused_novelty_features": d}
+                "fused_novelty_features": d, "window_median": medians}
 
     def gates_for(res, seeds, core, launches, **changes):
         res = {k: v.cpu().numpy() for k, v in res.items()}
@@ -897,19 +955,17 @@ def main() -> int:
 
     # the opt-in configs at the real size, on the adversarial mix: a warm-up
     # and timed batches, the default gates, the launch counts the config
-    # implies, peak device memory and stage times. The HPSS config sorts
-    # 267e9 window elements a batch (ten iterations, two axes, a 21-wide
-    # window over 40 x 15500 x 1025 cells), so it gets one timed batch and the
-    # times of its own three stages instead of the six prefixes
+    # implies, peak device memory and stage times; the HPSS config the times
+    # of its own three stages instead of the six prefixes
     opt_in = {}
     core = np.arange(40) < 28
     for name, spec_cfg in measure.OPT_IN_CONFIGS.items():
         cfg_o = measure.opt_in_config(name)
-        n_timed = 1 if name == "hpss" else 2
-        run_o = measure.timed_batches(adversarial, lengths, cfg_o, dev, n_timed)
+        run_o = measure.timed_batches(adversarial, lengths, cfg_o, dev, 2)
         gates, res, bpm = gates_for(run_o["out"], measure.ADVERSARIAL_BPMS, core,
                                     run_o["launches"], key_passes=spec_cfg["key_passes"],
-                                    whole_track_d=spec_cfg["whole_track_d"])
+                                    whole_track_d=spec_cfg["whole_track_d"],
+                                    medians=spec_cfg["medians"])
         if name == "hpss":
             gates["percussive fallback triggered"] = bool(res["percussive_triggered"].any())
             stages_o = measure.hpss_stage_times(adversarial, lengths, cfg_o, dev)
@@ -1107,10 +1163,11 @@ def main() -> int:
         """One kernel's line: times measured above, the bound computed from
         this run's shapes and data, launches from the adversarial batch (and
         from the file path's batch). No single PyTorch call computes any of
-        the four functions, so there is no library time."""
+        the five functions, so there is no library time; the windowed median
+        replaces no TPU kernel."""
         return {"name": name, "route": "cuda",
                 "source": f"stratum_dsp_tpu_torch/csrc/{source}",
-                "replaces": f"stratum_dsp_tpu/ops/{replaces}",
+                "replaces": replaces and f"stratum_dsp_tpu/ops/{replaces}",
                 "launches": main_launches[name], "launches_files": file_launches[name],
                 "launches_battery": battery_launches[name],
                 "launches_mesh_1d": mesh_stats["launches_mesh_1d"][name],
@@ -1129,7 +1186,11 @@ def main() -> int:
               err_c, ms_c["em"], plain_ms_c, bound_c["em"]),
         entry("fused_novelty_features", "fused_novelty.cu", "novelty_pallas.py:194",
               err_d, ms_d["base"], plain_ms_d["base"], bound_d["base"]),
+        entry("window_median", "window_median.cu", None, 0.0, ms_m["time"], plain_ms_m["time"],
+              bound_m["time"]),
     ]
+    kernels[4].update(frequency_ms=ms_m["frequency"], frequency_plain_ms=plain_ms_m["frequency"],
+                      frequency_bound_ms=bound_m["frequency"]["bound_ms"], chroma_ms=ms_chroma)
     # B and C on their second input, and the empty launch of their grids
     kernels[1].update(main_ms=ms_b["main"], main_bound_ms=bound_b["main"]["bound_ms"],
                       empty_launch_ms=empty_b)

@@ -47,11 +47,12 @@ from .analysis.pipeline import (
 from .analysis.decode import decode_results
 from .analysis.timing import analyze_batch_timed, stage_timings
 from .ops.downbeats import downbeat_mask
+from .ops.masked import window_median
 from .ops.novelty import fused_novelty_features
 from .ops.polyphase import polyphase_stage2
 from .ops.viterbi import viterbi_decode
 
-KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_features)
+KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_features, window_median)
 
 
 def reset_launch_counts() -> None:

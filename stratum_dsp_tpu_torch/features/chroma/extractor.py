@@ -318,12 +318,12 @@ def hpss_median_mask_downsampled(band_spec_ds: torch.Tensor, ds_counts: torch.Te
     select_nth medians (index len/2) across time and across frequency, then
     M = h^p / (h^p + per^p + eps). ``band_spec_ds [B, n_ds, band]``,
     ``ds_counts [B]`` valid downsampled frames."""
-    b, _, band = band_spec_ds.shape
     x = band_spec_ds.clamp_min(0.0)
-    h = masked.masked_select_nth_filter_1d(x.transpose(1, 2), ds_counts[:, None],
-                                           time_margin).transpose(1, 2)
-    per = masked.masked_select_nth_filter_1d(x, torch.full((b, 1), band, device=x.device),
-                                             freq_margin)
+    # the median kernel takes f32; a select-nth median is a selection, so
+    # the (bf16) band spectrogram's medians come back exact in its dtype
+    xf = x.float()
+    h = masked.masked_select_nth_filter_1d(xf, ds_counts, time_margin, dim=1).to(x.dtype)
+    per = masked.median_filter_1d_select_nth(xf, freq_margin).to(x.dtype)
     p = max(mask_power, 1.0)
     hp = torch.pow(h.clamp_min(0.0), p)
     pp = torch.pow(per.clamp_min(0.0), p)

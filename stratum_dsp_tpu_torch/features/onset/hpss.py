@@ -3,9 +3,9 @@
 estimate is median-filtered along time, the percussive one along frequency,
 and both are soft-masked so that H + P == |X|. Ten iterations, no early exit.
 
-Each iteration sorts a (2 * margin + 1)-wide window per spectrogram cell on
-both axes; ``ops.masked`` does that a slab of rows at a time, so a whole
-batch of full-length spectrograms fits the device.
+Each iteration takes a (2 * margin + 1)-wide median per spectrogram cell on
+both axes, on ``[B, F, K]`` as it lies: on the card each is one launch of
+``ops.masked.window_median``'s kernel.
 """
 
 from __future__ import annotations
@@ -22,13 +22,10 @@ def hpss_decompose(spec: torch.Tensor, frame_counts: torch.Tensor, margin: int,
                    iterations: int = DEFAULT_ITERATIONS):
     """Decompose ``spec [B, F, K]`` into (harmonic, percussive) of the same
     shape. ``frame_counts [B]`` bounds each track's window on the time axis."""
-    b, f, k = spec.shape
     harmonic = percussive = spec
-    n_bins = torch.full((b, 1), k, device=spec.device)
     for _ in range(iterations):
-        h = masked.masked_median_filter_1d(harmonic.transpose(1, 2), frame_counts[:, None],
-                                           margin).transpose(1, 2)
-        p = masked.masked_median_filter_1d(percussive, n_bins, margin)
+        h = masked.masked_median_filter_1d(harmonic, frame_counts, margin, dim=1)
+        p = masked.median_filter_1d(percussive, margin)
         # soft-mask reconstruction (hpss.rs:131-151)
         total = h + p
         ratio_h = torch.where(total > EPSILON, h / total.clamp_min(EPSILON), 0.5)

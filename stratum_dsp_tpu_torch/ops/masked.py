@@ -2,16 +2,21 @@
 
 Per-track quantities keep the JAX package's padded shapes with per-track
 valid lengths/masks, so every result compares array by array with the
-reference. All functions work on the last axis; leading axes broadcast.
+reference. All functions work on the last axis, the median filters on any
+(``dim``); leading axes broadcast. The windowed median is a CUDA kernel on the
+card (``csrc/window_median.cu``) with its plain version beside it.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import tracing
+from . import cuda_build
 
 EPSILON = 1e-10
 
@@ -240,27 +245,35 @@ def searchsorted_nearest(query: torch.Tensor, sorted_vals: torch.Tensor, n_valid
     return torch.where(d_lo <= d_hi, o_lo, o_hi), torch.minimum(d_lo, d_hi)
 
 
-# elements of the window stack (rows x positions x window) one sort may hold;
-# larger inputs go through the median filters a slab of rows at a time
+# elements of the window stack (rows x positions x window) one sort of the
+# plain version may hold; larger inputs go through it a slab of rows at a time
 MEDIAN_SLAB_ELEMENTS = 1 << 28
+# the widest half-width the kernel keeps in registers (kMaxRegisterHalf in
+# csrc/window_median.cu); wider windows take its general path
+MEDIAN_REGISTER_HALF = 32
 
 
-def _window_median(x: torch.Tensor, n_valid, half: int, average_even: bool) -> torch.Tensor:
-    """Median of the window [i-half, i+half], clipped to each row's valid
-    range [0, n_valid), at every position of the last axis. ``n_valid``
-    broadcasts against ``x[..., 0]`` (None: the whole axis); entries at
-    i >= n_valid come back unchanged. An even count averages the two middle
-    values or, without ``average_even``, takes element count // 2.
-
-    Every window is sorted with its out-of-range entries as +inf at the end,
-    ``MEDIAN_SLAB_ELEMENTS`` window elements at a time, so the result is a
-    selection from ``x`` (or the mean of two) whatever the slab size."""
+def window_median_plain(x: torch.Tensor, n_valid, half: int, average_even: bool,
+                        dim: int = -1) -> torch.Tensor:
+    """Plain PyTorch version of ``window_median``: every window sorted with
+    its out-of-range entries as +inf at the end, ``MEDIAN_SLAB_ELEMENTS``
+    window elements at a time, so the result is a selection from ``x`` (or
+    the mean of two) whatever the slab size. Another ``dim`` than the last is
+    moved last first."""
+    d = dim % x.dim()
+    if d != x.dim() - 1:
+        if n_valid is not None:
+            nv = torch.as_tensor(n_valid, device=x.device).expand(x.shape[:d])
+            n_valid = nv.reshape(nv.shape + (1,) * (x.dim() - d - 1))
+        return window_median_plain(x.movedim(d, -1), n_valid, half,
+                                   average_even).movedim(-1, d)
     n = x.shape[-1]
     flat = x.reshape(-1, n)
     if n_valid is None:
         nv = torch.full((flat.shape[0],), n, device=x.device)
     else:
         nv = torch.as_tensor(n_valid, device=x.device).expand(x.shape[:-1]).reshape(-1)
+        nv = nv.clamp(max=n)
     idx = torch.arange(n, device=x.device)
     lo = (idx - half).clamp_min(0)
     out = torch.empty_like(flat)
@@ -281,32 +294,104 @@ def _window_median(x: torch.Tensor, n_valid, half: int, average_even: bool) -> t
     return out.reshape(x.shape)
 
 
-def median_filter_1d(x: torch.Tensor, half: int) -> torch.Tensor:
-    """Centered median filter on the last axis, the window [i-half, i+half]
+def window_median_shape(x: torch.Tensor, dim: int, half: int) -> tuple:
+    """``(outer, n, inner)``: ``x`` as the kernel views it, the filtered axis
+    ``dim`` in the middle. Raises ``ValueError`` on what the kernel does not
+    take: another dtype than f32, a layout that is not contiguous, a
+    negative half-width, an axis of 2^31 or more."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"window_median kernel takes f32, got {x.dtype}")
+    if x.dim() == 0 or not x.is_contiguous():
+        raise ValueError(f"window_median kernel takes a contiguous tensor of one axis or more, "
+                         f"got shape {tuple(x.shape)} with strides {x.stride()}")
+    if half < 0:
+        raise ValueError(f"window_median: half-width {half} < 0")
+    d = dim % x.dim()
+    shape = (math.prod(x.shape[:d]), x.shape[d], math.prod(x.shape[d + 1:]))
+    if max(shape) >= 1 << 31:
+        raise ValueError(f"window_median kernel takes axes below 2^31, got {shape}")
+    return shape
+
+
+def window_median_bound_ms(outer: int, n: int, inner: int, half: int) -> dict:
+    """The least time an H100 could take for one call on ``[outer, n, inner]``.
+
+    Bytes: every f32 cell read once and written once, 8 B a cell, over
+    3.35 TB/s. Operations: a sliding median has to keep its window's order
+    under one insert and one delete a cell, which takes at least
+    2 * ceil(log2(2 * half + 1)) comparisons (two binary searches); over
+    67 TFLOP/s that time is far below the bytes', so the bound is set by
+    bytes."""
+    cells = outer * n * inner
+    return cuda_build.roofline(8 * cells, cells * 2 * math.ceil(math.log2(2 * half + 1)))
+
+
+def window_median(x: torch.Tensor, n_valid, half: int, average_even: bool,
+                  dim: int = -1) -> torch.Tensor:
+    """Median of the window [i-half, i+half] along ``dim``, clipped to each
+    row's valid range [0, n_valid), at every position i of that axis.
+    ``n_valid`` broadcasts against ``x.shape[:dim]`` (None: the whole axis)
+    and is clipped to the axis; entries at i >= n_valid come back unchanged.
+    An even count averages the two middle values or, without
+    ``average_even``, takes element count // 2.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/window_median.cu`` on ``x`` as it lies, or raises."""
+    if x.device.type == "cpu":
+        return window_median_plain(x, n_valid, half, average_even, dim)
+    if x.device.type != "cuda":
+        raise ValueError(f"window_median: unsupported device {x.device}")
+    outer, n, inner = window_median_shape(x, dim, half)
+    out = torch.empty_like(x)
+    if not out.numel():
+        return out
+    nv = None
+    if n_valid is not None:
+        nv = torch.as_tensor(n_valid, device=x.device).expand(x.shape[:dim % x.dim()])
+        nv = nv.reshape(-1).clamp(0, n).to(torch.int32).contiguous()
+    lib = cuda_build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.stratum_window_median(x.data_ptr(), None if nv is None else nv.data_ptr(),
+                                       out.data_ptr(), outer, n, inner, half, int(average_even),
+                                       stream)
+    cuda_build.check(rc, "window_median")
+    tracing.count_launch(window_median)
+    return out
+
+
+window_median.launches = 0
+
+
+def median_filter_1d(x: torch.Tensor, half: int, dim: int = -1) -> torch.Tensor:
+    """Centered median filter along ``dim``, the window [i-half, i+half]
     clipped to the array; an even count averages the two middle values
     (hpss.rs:196-201)."""
-    return _window_median(x, None, half, True)
+    return window_median(x, None, half, True, dim)
 
 
-def masked_median_filter_1d(x: torch.Tensor, n_valid: torch.Tensor, half: int) -> torch.Tensor:
+def masked_median_filter_1d(x: torch.Tensor, n_valid: torch.Tensor, half: int,
+                            dim: int = -1) -> torch.Tensor:
     """``median_filter_1d`` with the window clipped to each row's valid range
     [0, n_valid) (hpss.rs:179-243); ``n_valid`` broadcasts against
-    ``x[..., 0]`` and entries at i >= n_valid come back unchanged."""
-    return _window_median(x, n_valid, half, True)
+    ``x.shape[:dim]`` and entries at i >= n_valid come back unchanged."""
+    return window_median(x, n_valid, half, True, dim)
 
 
-def median_filter_1d_select_nth(x: torch.Tensor, half: int) -> torch.Tensor:
+def median_filter_1d_select_nth(x: torch.Tensor, half: int, dim: int = -1) -> torch.Tensor:
     """Median filter that takes the single element at index count // 2 of the
     clipped window, with no even-count averaging (``select_nth_unstable``,
     extractor.rs:1430-1438)."""
-    return _window_median(x, None, half, False)
+    return window_median(x, None, half, False, dim)
 
 
-def masked_select_nth_filter_1d(x: torch.Tensor, n_valid: torch.Tensor, half: int) -> torch.Tensor:
+def masked_select_nth_filter_1d(x: torch.Tensor, n_valid: torch.Tensor, half: int,
+                                dim: int = -1) -> torch.Tensor:
     """``median_filter_1d_select_nth`` with the window clipped to each row's
     valid range [0, n_valid) (smoothing.rs:37-94); ``n_valid`` broadcasts
-    against ``x[..., 0]`` and entries at i >= n_valid come back unchanged."""
-    return _window_median(x, n_valid, half, False)
+    against ``x.shape[:dim]`` and entries at i >= n_valid come back
+    unchanged."""
+    return window_median(x, n_valid, half, False, dim)
 
 
 def distance_to_nearest_true(mask: torch.Tensor, big: float = 1e9) -> torch.Tensor:

@@ -44,7 +44,7 @@ def _spec(seed=21, shape=(2, 48, 65)):
     return x, counts
 
 
-@pytest.mark.parametrize("margin", [3, 10])
+@pytest.mark.parametrize("margin", [3, 10, 1, 40])
 def test_hpss_decompose_matches_jax(margin):
     x, counts = _spec()
     h, p = phpss.hpss_decompose(torch.as_tensor(x), torch.as_tensor(counts), margin)

@@ -24,14 +24,14 @@ def _eq(got, ref):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("half", [1, 2, 5])
+@pytest.mark.parametrize("half", [1, 2, 5, 0, 10, 40])
 @pytest.mark.parametrize("ties", [False, True])
 def test_median_filter_1d_exact(half, ties):
     x = _rows(1, (3, 4, 37), ties)
     _eq(pm.median_filter_1d(torch.as_tensor(x), half), jm.median_filter_1d(jnp.asarray(x), half))
 
 
-@pytest.mark.parametrize("half", [1, 3, 10])
+@pytest.mark.parametrize("half", [1, 3, 10, 0, 2, 8, 40])
 @pytest.mark.parametrize("ties", [False, True])
 def test_masked_median_filter_1d_exact_on_ragged_rows(half, ties):
     """Even windows average the two middle values; entries past each row's
@@ -53,7 +53,7 @@ def test_masked_median_filter_does_not_depend_on_the_slab(monkeypatch, slab):
     _eq(pm.masked_median_filter_1d(x, nv, 3), ref)
 
 
-@pytest.mark.parametrize("half", [1, 2, 8])
+@pytest.mark.parametrize("half", [1, 2, 8, 0, 10, 40])
 @pytest.mark.parametrize("ties", [False, True])
 def test_median_filter_select_nth_exact(half, ties):
     """No even-count averaging: the element at count // 2."""
@@ -62,12 +62,64 @@ def test_median_filter_select_nth_exact(half, ties):
         jm.median_filter_1d_select_nth(jnp.asarray(x), half))
 
 
-@pytest.mark.parametrize("half", [2, 8])
+@pytest.mark.parametrize("half", [2, 8, 0, 1, 10, 40])
 def test_masked_select_nth_filter_exact(half):
     x = _rows(5, (4, 12, 40), True)
     nv = np.asarray([40, 13, 0, 5])[:, None]
     _eq(pm.masked_select_nth_filter_1d(torch.as_tensor(x), torch.as_tensor(nv), half),
         jpost._median_select_nth_masked(jnp.asarray(x), jnp.asarray(nv), half))
+
+
+@pytest.mark.parametrize("half", [0, 1, 2, 8, 10, 40])
+@pytest.mark.parametrize("average_even", [True, False])
+@pytest.mark.parametrize("ties", [False, True])
+def test_median_along_a_middle_axis_is_the_last_axis_form(half, average_even, ties):
+    """``[outer, n, inner]`` with the filtered axis in the middle, as the
+    kernel takes it: equal to the transposed last-axis form and to the JAX
+    package, on ragged rows (0, 1, 2, even, odd and whole valid lengths),
+    ties and zeros."""
+    x = _rows(7, (6, 29, 5), ties)
+    x[:, ::4, 1] = 0.0
+    nv = np.asarray([0, 1, 2, 14, 17, 29])
+    got = pm.window_median(torch.as_tensor(x), torch.as_tensor(nv), half, average_even, dim=1)
+    xt = torch.as_tensor(x).transpose(1, 2)
+    last = pm.window_median(xt, torch.as_tensor(nv)[:, None], half, average_even).transpose(1, 2)
+    _eq(got, last.numpy())
+    ref = jm.masked_median_filter_1d if average_even else jpost._median_select_nth_masked
+    want = ref(jnp.asarray(xt.numpy()), jnp.asarray(nv)[:, None], half)
+    _eq(got, np.asarray(want).transpose(0, 2, 1))
+    np.testing.assert_array_equal(got.numpy()[0], x[0])  # nothing valid: unchanged
+
+
+def test_the_kernel_refuses_what_it_does_not_take():
+    """The kernel's view of a tensor (``window_median_shape``) takes f32
+    contiguous tensors and a half-width of 0 or more; a device that is
+    neither the CPU nor a CUDA card is refused before any view."""
+    x = torch.zeros((2, 50, 40))
+    assert pm.window_median_shape(x, 1, 3) == (2, 50, 40)
+    assert pm.window_median_shape(x, -1, 3) == (100, 40, 1)
+    assert pm.window_median_shape(x, 0, 0) == (1, 2, 2000)
+    with pytest.raises(ValueError, match="f32"):
+        pm.window_median_shape(x.double(), 1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        pm.window_median_shape(x.transpose(1, 2), 1, 3)
+    with pytest.raises(ValueError, match="half-width"):
+        pm.window_median_shape(x, 1, -1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pm.window_median(x.to("meta"), None, 3, True, 1)
+
+
+def test_window_median_bound_counts_eight_bytes_a_cell():
+    """``window_median_bound_ms``: each f32 cell read once and written once;
+    two binary searches a cell as the least operations, far below the
+    bytes' time at the HPSS cell's shape."""
+    cells = 16 * 15500 * 1025
+    b = pm.window_median_bound_ms(16, 15500, 1025, 10)
+    assert b["bytes"] == 8 * cells
+    assert b["operations"] == cells * 2 * 5  # ceil(log2(21)) = 5
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(8 * cells / 3.35e12 * 1e3)
+    assert pm.window_median_bound_ms(2, 3, 4, 0)["operations"] == 0  # a window of one
 
 
 def test_the_three_medians_differ_where_they_should():
