@@ -201,88 +201,95 @@ def frames_to_hpcp(spec, sample_rate: int, fft_size: int, sigma: float, tuning_o
     ``[B]`` (it only shifts semitone positions). ``approx_peaks`` selects the
     top-K peak set by a threshold found by bisection instead of a sort: the
     harmonic summation does not depend on the order, so only peaks tied with
-    the K-th within the bisection's resolution can differ."""
+    the K-th within the bisection's resolution can differ.
+
+    Records a ``key.hpcp`` span around the peak pick and the harmonic
+    summation, its attribute ``exact`` True where the sort picked the peaks."""
     n_bins = spec.shape[-1]
     fmin, fmax = max(fmin_hz, 20.0), min(fmax_hz, sample_rate / 2)
     if fmax <= fmin:
         return torch.zeros(spec.shape[:-1] + (12,), dtype=torch.float32, device=spec.device)
     # peaks and their usable harmonics all lie in [fmin, fmax]
     hi_bin = min(int(np.ceil(fmax / (sample_rate / fft_size))) + 2, n_bins)
-    spec_b = spec[..., :hi_bin]
-    freqs = bin_freqs(sample_rate, fft_size, n_bins)[:hi_bin]
-    sel = spectral_whiten(spec_b, whitening_smooth_bins) if (
-        enable_whitening and whitening_smooth_bins >= 3) else spec_b
-    prev = torch.cat([sel[..., :1], sel[..., :-1]], dim=-1)
-    nxt = torch.cat([sel[..., 1:], sel[..., -1:]], dim=-1)
-    # interior of the full spectrum: bins 1 .. n_bins - 2
-    static_ok = ((np.arange(hi_bin) >= 1) & (np.arange(hi_bin) < n_bins - 1)
-                 & (freqs >= fmin) & (freqs <= fmax))
-    with tracing.host_read("chroma.peak_band"):
-        static_ok = torch.as_tensor(static_ok, device=spec.device)
-    peak_ok = static_ok & (sel > prev) & (sel >= nxt)
     k_top = max(min(peaks_per_frame, hi_bin), 1)
-    peak_vals = torch.where(peak_ok, sel, float("-inf"))
-    raw = spec_b.clamp_min(0.0)
-    p = float(np.clip(mag_power, 0.05, 1.0))
     half_w = (hi_bin + 1) // 2
-    per_track = torch.is_tensor(tuning_offset)
+    exact = not (approx_peaks and k_top <= half_w)
+    with tracing.span("key.hpcp", exact=exact):
+        spec_b = spec[..., :hi_bin]
+        freqs = bin_freqs(sample_rate, fft_size, n_bins)[:hi_bin]
+        sel = spectral_whiten(spec_b, whitening_smooth_bins) if (
+            enable_whitening and whitening_smooth_bins >= 3) else spec_b
+        prev = torch.cat([sel[..., :1], sel[..., :-1]], dim=-1)
+        nxt = torch.cat([sel[..., 1:], sel[..., -1:]], dim=-1)
+        # interior of the full spectrum: bins 1 .. n_bins - 2
+        static_ok = ((np.arange(hi_bin) >= 1) & (np.arange(hi_bin) < n_bins - 1)
+                     & (freqs >= fmin) & (freqs <= fmax))
+        with tracing.host_read("chroma.peak_band"):
+            static_ok = torch.as_tensor(static_ok, device=spec.device)
+        peak_ok = static_ok & (sel > prev) & (sel >= nxt)
+        peak_vals = torch.where(peak_ok, sel, float("-inf"))
+        raw = spec_b.clamp_min(0.0)
+        p = float(np.clip(mag_power, 0.05, 1.0))
+        per_track = torch.is_tensor(tuning_offset)
 
-    if approx_peaks and k_top <= half_w:
-        # bisect tau ~ the k-th largest peak value: count(>= lo) >= k_top >=
-        # count(>= hi); with fewer than k_top peaks lo stays 0 and all are kept
-        hi = torch.where(peak_ok, sel, 0.0).amax(dim=-1, keepdim=True)
-        lo = torch.zeros_like(hi)
-        for _ in range(20):
-            mid = 0.5 * (lo + hi)
-            take_lower = ((peak_vals >= mid) & peak_ok).sum(dim=-1, keepdim=True) < k_top
-            hi = torch.where(take_lower, mid, hi)
-            lo = torch.where(take_lower, lo, mid)
-        mask = peak_ok & (peak_vals >= lo)
-        w_bins = torch.where(mask, torch.sqrt(raw) if p == 0.5 else torch.pow(raw, p), 0.0)
+        if not exact:
+            # bisect tau ~ the k-th largest peak value: count(>= lo) >= k_top
+            # >= count(>= hi); with fewer than k_top peaks lo stays 0 and all
+            # are kept
+            hi = torch.where(peak_ok, sel, 0.0).amax(dim=-1, keepdim=True)
+            lo = torch.zeros_like(hi)
+            for _ in range(20):
+                mid = 0.5 * (lo + hi)
+                take_lower = ((peak_vals >= mid) & peak_ok).sum(dim=-1, keepdim=True) < k_top
+                hi = torch.where(take_lower, mid, hi)
+                lo = torch.where(take_lower, lo, mid)
+            mask = peak_ok & (peak_vals >= lo)
+            w_bins = torch.where(mask, torch.sqrt(raw) if p == 0.5 else torch.pow(raw, p), 0.0)
+            if per_track:
+                m = hpcp_harmonic_matrix_dynamic(sample_rate, fft_size, hi_bin, sigma,
+                                                 tuning_offset, num_harmonics, harmonic_decay,
+                                                 fmin, fmax)
+            else:
+                with tracing.host_read("chroma.hpcp_matrix"):
+                    m = torch.as_tensor(hpcp_harmonic_matrix(
+                        sample_rate, fft_size, hi_bin, sigma, float(tuning_offset),
+                        num_harmonics, harmonic_decay, fmin, fmax), device=spec.device)
+            return l2_normalize_zero(torch.matmul(w_bins.to(torch.float32), m))
+
+        # exact top-k: the larger of each (even, odd) bin pair first (two
+        # neighbours are never both peaks; a tie goes to the even bin), then a
+        # stable sort of the halved row, ties to the lower bin
+        if k_top <= half_w:
+            pv = F.pad(peak_vals, (0, hi_bin % 2), value=float("-inf"))
+            raw = F.pad(raw, (0, hi_bin % 2))
+            ev, od = pv[..., 0::2], pv[..., 1::2]
+            take_odd = od > ev
+            pv2 = torch.where(take_odd, od, ev)
+            id2 = 2 * torch.arange(half_w, device=spec.device) + take_odd.to(torch.int64)
+            s_neg, order = torch.sort(-pv2, dim=-1, stable=True)
+            top_vals = -s_neg[..., :k_top]
+            top_idx = torch.gather(id2, -1, order[..., :k_top])
+        else:  # a band narrower than 2 * k_top bins
+            top_vals, top_idx = masked.top_k_masked(peak_vals, peak_ok, k_top)
+        raw_at_peak = torch.gather(raw, -1, top_idx)
+        w0 = torch.where(torch.isfinite(top_vals), torch.pow(raw_at_peak, p), 0.0)
+
+        f0 = top_idx.to(torch.float32) * (sample_rate / fft_size)  # [..., k_top]
+        h = torch.arange(1, max(num_harmonics, 1) + 1, dtype=torch.float32, device=spec.device)
+        fh = f0[..., None] * h  # [..., k_top, H]
+        h_ok = (fh >= fmin) & (fh <= fmax) & (f0[..., None] > 0.0)
+        hw = torch.pow(float(np.clip(harmonic_decay, 0.0, 1.0)), h - 1.0) / h
+        contrib = w0[..., None].to(torch.float32) * hw * h_ok
+        semis = 12.0 * torch.log2(masked.cdiv(fh.clamp_min(1e-6), A4_FREQ)) + SEMITONE_OFFSET
         if per_track:
-            m = hpcp_harmonic_matrix_dynamic(sample_rate, fft_size, hi_bin, sigma, tuning_offset,
-                                             num_harmonics, harmonic_decay, fmin, fmax)
-        else:
-            with tracing.host_read("chroma.hpcp_matrix"):
-                m = torch.as_tensor(hpcp_harmonic_matrix(
-                    sample_rate, fft_size, hi_bin, sigma, float(tuning_offset), num_harmonics,
-                    harmonic_decay, fmin, fmax), device=spec.device)
-        return l2_normalize_zero(torch.matmul(w_bins.to(torch.float32), m))
-
-    # exact top-k: the larger of each (even, odd) bin pair first (two
-    # neighbours are never both peaks; a tie goes to the even bin), then a
-    # stable sort of the halved row, ties to the lower bin
-    if k_top <= half_w:
-        pv = F.pad(peak_vals, (0, hi_bin % 2), value=float("-inf"))
-        raw = F.pad(raw, (0, hi_bin % 2))
-        ev, od = pv[..., 0::2], pv[..., 1::2]
-        take_odd = od > ev
-        pv2 = torch.where(take_odd, od, ev)
-        id2 = 2 * torch.arange(half_w, device=spec.device) + take_odd.to(torch.int64)
-        s_neg, order = torch.sort(-pv2, dim=-1, stable=True)
-        top_vals = -s_neg[..., :k_top]
-        top_idx = torch.gather(id2, -1, order[..., :k_top])
-    else:  # a band narrower than 2 * k_top bins
-        top_vals, top_idx = masked.top_k_masked(peak_vals, peak_ok, k_top)
-    raw_at_peak = torch.gather(raw, -1, top_idx)
-    w0 = torch.where(torch.isfinite(top_vals), torch.pow(raw_at_peak, p), 0.0)
-
-    f0 = top_idx.to(torch.float32) * (sample_rate / fft_size)  # [..., k_top]
-    h = torch.arange(1, max(num_harmonics, 1) + 1, dtype=torch.float32, device=spec.device)
-    fh = f0[..., None] * h  # [..., k_top, H]
-    h_ok = (fh >= fmin) & (fh <= fmax) & (f0[..., None] > 0.0)
-    hw = torch.pow(float(np.clip(harmonic_decay, 0.0, 1.0)), h - 1.0) / h
-    contrib = w0[..., None].to(torch.float32) * hw * h_ok
-    semis = 12.0 * torch.log2(masked.cdiv(fh.clamp_min(1e-6), A4_FREQ)) + SEMITONE_OFFSET
-    if per_track:
-        # per-track offsets broadcast from the left, never against [k_top, H]
-        t = tuning_offset.to(torch.float32)
-        tuning_offset = t.reshape(t.shape + (1,) * (semis.dim() - t.dim()))
-    pc = torch.remainder(semis - tuning_offset, 12.0)
-    out = torch.zeros(spec.shape[:-1] + (12,), dtype=torch.float32, device=spec.device)
-    for cls, wt in _soft_class_weights(pc, sigma):
-        out.scatter_add_(-1, cls.flatten(-2), (wt * contrib).flatten(-2))
-    return l2_normalize_zero(out)
+            # per-track offsets broadcast from the left, never against [k_top, H]
+            t = tuning_offset.to(torch.float32)
+            tuning_offset = t.reshape(t.shape + (1,) * (semis.dim() - t.dim()))
+        pc = torch.remainder(semis - tuning_offset, 12.0)
+        out = torch.zeros(spec.shape[:-1] + (12,), dtype=torch.float32, device=spec.device)
+        for cls, wt in _soft_class_weights(pc, sigma):
+            out.scatter_add_(-1, cls.flatten(-2), (wt * contrib).flatten(-2))
+        return l2_normalize_zero(out)
 
 
 def windowed_time_mean(spec, fvalid, margin: int):
@@ -357,8 +364,9 @@ def estimate_tuning_offset(spec: torch.Tensor, fvalid: torch.Tensor, sample_rate
 def tuning_residual_sin_cos(sample_rate: int, fft_size: int, n_bins: int, device):
     """sin and cos ``[n_bins]`` of 2 pi times each bin's residual from its
     nearest semitone (f32 on the device)."""
-    semis = torch.as_tensor(semitones_of_bins(sample_rate, fft_size, n_bins).astype(np.float32),
-                            device=device)
+    with tracing.host_read("tuning.residuals"):
+        semis = torch.as_tensor(
+            semitones_of_bins(sample_rate, fft_size, n_bins).astype(np.float32), device=device)
     angle = 2.0 * np.pi * (semis - torch.round(semis))
     return torch.sin(angle), torch.cos(angle)
 

@@ -82,17 +82,27 @@ def _stream_key_stft(samples, lengths, cfg: AnalysisConfig, sample_rate: int, re
     ``(tracks, time)`` mesh (``samples`` then a tracks shard's
     ``parallel.timeblocks.TimeBlocks``), where it is the direct windowed DFT (a
     symmetric Hann, as the JAX package's time-sharded path computes it),
-    else by ``stft_reduce`` (the polyphase form under bf16)."""
+    else by ``stft_reduce`` (the polyphase form under bf16).
+
+    Counts one ``key_stft_passes`` a call and one ``key_stft_chunks`` a chunk
+    it streams, on the innermost open span (``key.tuning``, ``key.hpss_mask``
+    or ``key.stft``)."""
     frame_size, hop = _key_stft_params(cfg)
     chunk = _auto_chunk(samples.shape[0], frame_size, chunk_frames)
     keep_bins = _key_keep_bins(cfg, sample_rate, frame_size)
+    tracing.count("key_stft_passes")
+
+    def counted(spec, fidx, fvalid, carry):
+        tracing.count("key_stft_chunks")
+        return reducer(spec, fidx, fvalid, carry)
+
     if mesh is not None and "time" in mesh.shape:
         from ...parallel.timeblocks import stft_reduce_sharded
 
-        return stft_reduce_sharded(samples, lengths, frame_size, hop, reducer, lambda b: None,
+        return stft_reduce_sharded(samples, lengths, frame_size, hop, counted, lambda b: None,
                                    mesh, prev_frames=0, halo_frames=halo, keep_bins=keep_bins,
                                    chunk_frames=chunk, bf16=cfg.stft_bf16)
-    return stft_reduce(samples, lengths, frame_size, hop, reducer, lambda b: None,
+    return stft_reduce(samples, lengths, frame_size, hop, counted, lambda b: None,
                        chunk_frames=chunk, halo=halo, keep_bins=keep_bins, bf16=cfg.stft_bf16)
 
 
@@ -125,8 +135,9 @@ def estimate_tuning_streamed(samples, lengths, cfg: AnalysisConfig, sample_rate:
     freqs = chx.bin_freqs(sample_rate, frame_size, n_bins)
     fmin, fmax = 80.0, float(np.clip(2000.0, 81.0, sample_rate / 2))
     r_sin, r_cos = chx.tuning_residual_sin_cos(sample_rate, frame_size, n_bins, dev)
-    consts = _device_copies(in_band=torch.as_tensor((freqs >= fmin) & (freqs <= fmax), device=dev),
-                            r_sin=r_sin, r_cos=r_cos)
+    with tracing.host_read("tuning.in_band"):
+        in_band = torch.as_tensor((freqs >= fmin) & (freqs <= fmax), device=dev)
+    consts = _device_copies(in_band=in_band, r_sin=r_sin, r_cos=r_cos)
     step = max(cfg.key_tuning_frame_step, 1)
     thr_rel = float(np.clip(cfg.key_tuning_peak_rel_threshold, 0.0, 1.0))
 
