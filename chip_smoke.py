@@ -79,6 +79,13 @@ Between them, the opt-in paths:
   ``[40, 3900, 12]`` and the general path of a wide window, each bit for bit
   against its plain version (the ``torch.sort`` over unfolded windows, whose
   time is the yardstick), with the kernel's time and bound;
+* the HPCP of the bisection peak pick (``ops/hpcp.py:hpcp_bisect``, a kernel
+  with no TPU counterpart) after the windowed median: a default key chunk's
+  ``[40, 183, 931]`` and a single request's ``[1, 512, 931]`` rows, timed
+  beside the plain version and the bound, and rows with ties, fewer peaks
+  than K, no peaks, bf16, whitening, per-track matrices, the bass band and a
+  band past 2048 bins, each within 1e-6 of the plain version; its launches a
+  key STFT chunk: one, two under the bass blend, none under exact peaks;
 
 * kernel A at the log-frequency shape (every bin kept: ``keep = 4097``,
   ``KP = 4224``) at B = 40 and at ragged batches, bit for bit, and kernel D's
@@ -825,6 +832,95 @@ def main() -> int:
           f"at [4,2000,1025] on both axes")
     del chroma_m, ties_m
 
+    # the HPCP of the bisection peak pick (no TPU kernel: the JAX package
+    # leaves it to XLA) at a default key chunk's [40, 183, 931] f32 and a
+    # single request's [1, 512, 931]: random magnitudes (~310 peaks a frame),
+    # rows of four values (ties at the K-th peak), rows with fewer peaks than
+    # K, zero rows, bf16 rows, whitened rows, per-track matrices and the bass
+    # band, each within 1e-6 of the plain version (only the order of the 12
+    # sums differs); then its launches a key STFT chunk in three configs
+    from stratum_dsp_tpu_torch.features.chroma import extractor as chx
+    from stratum_dsp_tpu_torch.features.key import pipeline as key_pipeline
+    from stratum_dsp_tpu_torch.ops import hpcp
+
+    cfg_k = port.AnalysisConfig()
+    sr, fft = testing.SAMPLE_RATE, cfg_k.key_stft_frame_size
+    h_args = (cfg_k.soft_mapping_sigma, 0.0, cfg_k.key_hpcp_num_harmonics,
+              cfg_k.key_hpcp_harmonic_decay)
+    gen_h = torch.Generator(device=dev).manual_seed(16)
+
+    def hpcp_case(shape, fmin=100.0, fmax=5000.0, k_top=24, dtype=torch.float32,
+                  whiten=False, per_track=False, ties=False):
+        n = shape[-1]
+        spec_h = torch.rand(shape, generator=gen_h, device=dev) * 3.0
+        if ties:
+            spec_h = torch.randint(0, 4, shape, generator=gen_h, device=dev).float()
+        spec_h[0, :3] = 0.0  # rows with no peak
+        spec_h[-1, -3:] = 1.0  # rows with fewer peaks than K
+        spec_h[-1, -3:, 100::100] = 2.0
+        spec_h = spec_h.to(dtype)
+        sel_h = chx.spectral_whiten(spec_h, 31) if whiten else spec_h
+        hi_bin = min(int(np.ceil(fmax / (sr / fft))) + 2, n)
+        if per_track:
+            tun = torch.rand((shape[0],), generator=gen_h, device=dev) - 0.5
+            mat = chx.hpcp_harmonic_matrix_dynamic(sr, fft, hi_bin, h_args[0], tun, *h_args[2:],
+                                                   fmin, fmax)
+        else:
+            mat = chx.hpcp_harmonic_matrix_on(dev, sr, fft, hi_bin, *h_args, fmin, fmax)
+        band = hpcp.peak_band(n, hi_bin, sr, fft, fmin, fmax)
+        args = (spec_h[..., :hi_bin], sel_h[..., :hi_bin], band, k_top, 0.5, mat)
+        got_h = hpcp.hpcp_bisect(*args)
+        torch.cuda.synchronize()
+        return float((got_h - hpcp.hpcp_bisect_plain(*args)).abs().max()), args
+
+    main_h = ((B_REAL, 183, 931), (1, 512, 931))
+    err_h, ms_h, plain_ms_h, bound_h = 0.0, {}, {}, {}
+    for shape in main_h:
+        err, args = hpcp_case(shape)
+        err_h = max(err_h, err)
+        ms_h[shape] = cuda_time_ms(lambda a=args: hpcp.hpcp_bisect(*a), 50)
+        plain_ms_h[shape] = cuda_time_ms(lambda a=args: hpcp.hpcp_bisect_plain(*a), 10)
+        bound_h[shape] = hpcp.hpcp_bisect_bound_ms(shape[0] * shape[1], shape[2], 24)
+        phase("kernel hpcp_bisect",
+              f"{list(shape)} f32, 24 peaks, 4 harmonics: {err:.3g} from the plain version; "
+              f"kernel {ms_h[shape]:.4f} ms, plain {plain_ms_h[shape]:.4f} ms, "
+              f"{bound_text(bound_h[shape], ms_h[shape])}")
+    cases_h = {"ties": dict(ties=True), "bf16": dict(dtype=torch.bfloat16),
+               "bf16 ties": dict(dtype=torch.bfloat16, ties=True),
+               "whitened": dict(whiten=True), "whitened bf16": dict(whiten=True,
+                                                                    dtype=torch.bfloat16),
+               "per-track": dict(per_track=True),
+               "bass band": dict(fmin=55.0, fmax=300.0, k_top=12),
+               "wide band": dict(fmax=20000.0)}
+    errs_h = {}
+    for name, kw in cases_h.items():
+        shape = (8, 64, 4097) if name == "wide band" else (B_REAL, 183, 931)
+        errs_h[name] = hpcp_case(shape, **kw)[0]
+    err_h = max(err_h, *errs_h.values())
+    if err_h > 1e-6:
+        fail(f"hpcp_bisect differs from its plain version by {err_h:.3g}: "
+             f"{errs_h} (main shapes included in the first)")
+    n_chunks_h, launched_h = {}, {}
+    x_h = testing.c_major_scale().repeat(2)[None].repeat(2, 1)
+    n_h = torch.full((2,), x_h.shape[1], dtype=torch.int64)
+    for name, overrides in (("default", {}), ("bass blend", dict(enable_key_hpcp_bass_blend=True)),
+                            ("tuned-exact", dict(key_hpcp_approx_peaks=False))):
+        port.reset_launch_counts()
+        key_pipeline.extract_key_features(x_h.to(dev), n_h.to(dev), cfg_k.replace(**overrides),
+                                          sr, chunk_frames=128)
+        torch.cuda.synchronize()
+        n_chunks_h[name] = port.tracing.counters()["key_stft_chunks"]
+        launched_h[name] = hpcp.hpcp_bisect.launches
+        if port.tracing.counters().get("hpcp_kernel", 0) != launched_h[name]:
+            fail(f"hpcp_kernel counts {port.tracing.counters()} against {launched_h[name]} "
+                 "launches")
+    if launched_h != {"default": n_chunks_h["default"], "bass blend": 2 * n_chunks_h["bass blend"],
+                      "tuned-exact": 0}:
+        fail(f"hpcp_bisect launches {launched_h} for key STFT chunks {n_chunks_h}")
+    phase("kernel hpcp_bisect",
+          f"within 1e-6 of the plain version on {', '.join(cases_h)} ({errs_h}); launches "
+          f"{launched_h} over key STFT chunks {n_chunks_h}")
+
     # 7. fixture batches, CPU (plain versions) vs card (kernels): the slice
     # batch under SLICE_CONFIG, and under the default config a batch that
     # takes every branch of the escalation
@@ -874,16 +970,17 @@ def main() -> int:
         return -(-((n_samples - 2048) // hop + 1) // 256)
 
     def want_launches(escalated: bool, cfg_multires: bool = True, key_passes: int = 1,
-                      whole_track_d: int = 0, medians: int = 1):
+                      whole_track_d: int = 0, medians: int = 1, hpcp: int = 81):
         """Launches of one batch: the key STFT's 81 chunks a pass (tuning
         compensation and the HPSS harmonic mask each add a pass), one downbeat
         walk, one decode, a reducer launch per BPM chunk (and per hop-256
         chunk when a track escalates), one over the whole percussive
-        spectrogram where the percussive fallback is on, and a windowed
-        median for the chroma smoothing (and two an HPSS iteration)."""
+        spectrogram where the percussive fallback is on, a windowed median
+        for the chroma smoothing (and two an HPSS iteration), and an HPCP a
+        chunk of the extraction pass where the bisection picks the peaks."""
         d = n_chunks(512) + (n_chunks(256) if escalated and cfg_multires else 0) + whole_track_d
         return {"polyphase_stage2": 81 * key_passes, "downbeat_mask": 1, "viterbi_decode": 1,
-                "fused_novelty_features": d, "window_median": medians}
+                "fused_novelty_features": d, "window_median": medians, "hpcp_bisect": hpcp}
 
     def gates_for(res, seeds, core, launches, **changes):
         res = {k: v.cpu().numpy() for k, v in res.items()}
@@ -965,7 +1062,7 @@ def main() -> int:
         gates, res, bpm = gates_for(run_o["out"], measure.ADVERSARIAL_BPMS, core,
                                     run_o["launches"], key_passes=spec_cfg["key_passes"],
                                     whole_track_d=spec_cfg["whole_track_d"],
-                                    medians=spec_cfg["medians"])
+                                    medians=spec_cfg["medians"], hpcp=spec_cfg["hpcp"])
         if name == "hpss":
             gates["percussive fallback triggered"] = bool(res["percussive_triggered"].any())
             stages_o = measure.hpss_stage_times(adversarial, lengths, cfg_o, dev)
@@ -1009,6 +1106,15 @@ def main() -> int:
         "tuning + bass blend + whitening + exact peaks": dict(
             enable_key_tuning_compensation=True, enable_key_hpcp_bass_blend=True,
             enable_key_hpcp_whitening=True, key_hpcp_approx_peaks=False),
+        "tuning + bass blend + whitening, bisection peaks": dict(
+            enable_key_tuning_compensation=True, enable_key_hpcp_bass_blend=True,
+            enable_key_hpcp_whitening=True),
+        # without conditioning the HPCP takes the key STFT's bf16 rows (whitened
+        # bf16 rows are left out: the whitening's bf16 running sums differ
+        # between the CPU and the card by 0.02 in key clarity, plain or kernel)
+        "tuning + bass blend, bisection peaks on bf16 rows": dict(
+            enable_key_tuning_compensation=True, enable_key_hpcp_bass_blend=True,
+            enable_key_harmonic_mask=False, enable_key_spectrogram_time_smoothing=False),
         "hpss harmonic mask": dict(enable_key_hpss_harmonic=True, enable_key_harmonic_mask=False),
         "ensemble": dict(enable_key_ensemble=True),
         "median": dict(enable_key_median=True, enable_key_segment_voting=False,
@@ -1163,8 +1269,8 @@ def main() -> int:
         """One kernel's line: times measured above, the bound computed from
         this run's shapes and data, launches from the adversarial batch (and
         from the file path's batch). No single PyTorch call computes any of
-        the five functions, so there is no library time; the windowed median
-        replaces no TPU kernel."""
+        the six functions, so there is no library time; the windowed median
+        and the HPCP replace no TPU kernel."""
         return {"name": name, "route": "cuda",
                 "source": f"stratum_dsp_tpu_torch/csrc/{source}",
                 "replaces": replaces and f"stratum_dsp_tpu/ops/{replaces}",
@@ -1188,7 +1294,12 @@ def main() -> int:
               err_d, ms_d["base"], plain_ms_d["base"], bound_d["base"]),
         entry("window_median", "window_median.cu", None, 0.0, ms_m["time"], plain_ms_m["time"],
               bound_m["time"]),
+        entry("hpcp_bisect", "hpcp_bisect.cu", None, err_h, ms_h[main_h[0]],
+              plain_ms_h[main_h[0]], bound_h[main_h[0]]),
     ]
+    kernels[5].update(single_ms=ms_h[main_h[1]], single_plain_ms=plain_ms_h[main_h[1]],
+                      single_bound_ms=bound_h[main_h[1]]["bound_ms"],
+                      launches_chunks=launched_h)
     kernels[4].update(frequency_ms=ms_m["frequency"], frequency_plain_ms=plain_ms_m["frequency"],
                       frequency_bound_ms=bound_m["frequency"]["bound_ms"], chroma_ms=ms_chroma)
     # B and C on their second input, and the empty launch of their grids

@@ -47,12 +47,14 @@ from .analysis.pipeline import (
 from .analysis.decode import decode_results
 from .analysis.timing import analyze_batch_timed, stage_timings
 from .ops.downbeats import downbeat_mask
+from .ops.hpcp import hpcp_bisect
 from .ops.masked import window_median
 from .ops.novelty import fused_novelty_features
 from .ops.polyphase import polyphase_stage2
 from .ops.viterbi import viterbi_decode
 
-KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_features, window_median)
+KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_features, window_median,
+           hpcp_bisect)
 
 
 def reset_launch_counts() -> None:

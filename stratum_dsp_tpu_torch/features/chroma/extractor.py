@@ -7,8 +7,9 @@
   then per-frame L2. A per-track tuning gives a ``[B, K, 12]`` projection.
 * HPCP (extractor.rs:556-680): the top-K spectral peaks are selected either by
   bisecting for the K-th largest peak value, the whole harmonic fan-out being
-  one matmul against a ``[bins, 12]`` harmonic projection, or exactly, by a
-  stable sort, with the fan-out computed per peak.
+  a product with a ``[bins, 12]`` harmonic projection (one kernel on the card,
+  ``ops/hpcp.py``), or exactly, by a stable sort, with the fan-out computed
+  per peak.
 * Conditioning (extractor.rs:1246-1501): time smoothing and the harmonic soft
   time-mask are windowed means over +-margin frames (a banded matmul); the
   median-filter HPSS mask runs on the time-downsampled, band-limited
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import tracing
-from ...ops import masked
+from ...ops import hpcp, masked
 from .postprocess import l2_normalize_zero
 
 A4_FREQ = 440.0
@@ -172,6 +173,23 @@ def hpcp_harmonic_matrix(sample_rate: int, fft_size: int, hi_bin: int, sigma: fl
     return m
 
 
+def hpcp_harmonic_matrix_on(device, sample_rate: int, fft_size: int, hi_bin: int, sigma: float,
+                            tuning_offset: float, num_harmonics: int, harmonic_decay: float,
+                            fmin: float, fmax: float) -> torch.Tensor:
+    """``hpcp_harmonic_matrix`` on ``device``, copied there once per device
+    and parameters: a copy from pageable memory waits for the stream, so a
+    copy per key chunk would drain it each time."""
+    return _hpcp_harmonic_matrix_on(str(torch.device(device)), sample_rate, fft_size, hi_bin,
+                                    sigma, tuning_offset, num_harmonics, harmonic_decay, fmin,
+                                    fmax)
+
+
+@functools.lru_cache(maxsize=32)
+def _hpcp_harmonic_matrix_on(device: str, *params) -> torch.Tensor:
+    with tracing.host_read("chroma.hpcp_matrix"):
+        return torch.as_tensor(hpcp_harmonic_matrix(*params), device=device)
+
+
 def hpcp_harmonic_matrix_dynamic(sample_rate: int, fft_size: int, hi_bin: int, sigma: float,
                                  tuning_offset: torch.Tensor, num_harmonics: int,
                                  harmonic_decay: float, fmin: float, fmax: float) -> torch.Tensor:
@@ -216,9 +234,25 @@ def frames_to_hpcp(spec, sample_rate: int, fft_size: int, sigma: float, tuning_o
     exact = not (approx_peaks and k_top <= half_w)
     with tracing.span("key.hpcp", exact=exact):
         spec_b = spec[..., :hi_bin]
-        freqs = bin_freqs(sample_rate, fft_size, n_bins)[:hi_bin]
         sel = spectral_whiten(spec_b, whitening_smooth_bins) if (
             enable_whitening and whitening_smooth_bins >= 3) else spec_b
+        p = float(np.clip(mag_power, 0.05, 1.0))
+        per_track = torch.is_tensor(tuning_offset)
+
+        if not exact:
+            # one launch of csrc/hpcp_bisect.cu on the card
+            if per_track:
+                m = hpcp_harmonic_matrix_dynamic(sample_rate, fft_size, hi_bin, sigma,
+                                                 tuning_offset, num_harmonics, harmonic_decay,
+                                                 fmin, fmax)
+            else:
+                m = hpcp_harmonic_matrix_on(spec.device, sample_rate, fft_size, hi_bin, sigma,
+                                            float(tuning_offset), num_harmonics,
+                                            harmonic_decay, fmin, fmax)
+            band = hpcp.peak_band(n_bins, hi_bin, sample_rate, fft_size, fmin, fmax)
+            return hpcp.hpcp_bisect(spec_b, sel, band, k_top, p, m)
+
+        freqs = bin_freqs(sample_rate, fft_size, n_bins)[:hi_bin]
         prev = torch.cat([sel[..., :1], sel[..., :-1]], dim=-1)
         nxt = torch.cat([sel[..., 1:], sel[..., -1:]], dim=-1)
         # interior of the full spectrum: bins 1 .. n_bins - 2
@@ -229,32 +263,6 @@ def frames_to_hpcp(spec, sample_rate: int, fft_size: int, sigma: float, tuning_o
         peak_ok = static_ok & (sel > prev) & (sel >= nxt)
         peak_vals = torch.where(peak_ok, sel, float("-inf"))
         raw = spec_b.clamp_min(0.0)
-        p = float(np.clip(mag_power, 0.05, 1.0))
-        per_track = torch.is_tensor(tuning_offset)
-
-        if not exact:
-            # bisect tau ~ the k-th largest peak value: count(>= lo) >= k_top
-            # >= count(>= hi); with fewer than k_top peaks lo stays 0 and all
-            # are kept
-            hi = torch.where(peak_ok, sel, 0.0).amax(dim=-1, keepdim=True)
-            lo = torch.zeros_like(hi)
-            for _ in range(20):
-                mid = 0.5 * (lo + hi)
-                take_lower = ((peak_vals >= mid) & peak_ok).sum(dim=-1, keepdim=True) < k_top
-                hi = torch.where(take_lower, mid, hi)
-                lo = torch.where(take_lower, lo, mid)
-            mask = peak_ok & (peak_vals >= lo)
-            w_bins = torch.where(mask, torch.sqrt(raw) if p == 0.5 else torch.pow(raw, p), 0.0)
-            if per_track:
-                m = hpcp_harmonic_matrix_dynamic(sample_rate, fft_size, hi_bin, sigma,
-                                                 tuning_offset, num_harmonics, harmonic_decay,
-                                                 fmin, fmax)
-            else:
-                with tracing.host_read("chroma.hpcp_matrix"):
-                    m = torch.as_tensor(hpcp_harmonic_matrix(
-                        sample_rate, fft_size, hi_bin, sigma, float(tuning_offset),
-                        num_harmonics, harmonic_decay, fmin, fmax), device=spec.device)
-            return l2_normalize_zero(torch.matmul(w_bins.to(torch.float32), m))
 
         # exact top-k: the larger of each (even, odd) bin pair first (two
         # neighbours are never both peaks; a tie goes to the even bin), then a

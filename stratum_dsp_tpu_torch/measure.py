@@ -34,18 +34,19 @@ ADVERSARIAL_BPMS = np.concatenate([np.round(np.linspace(85.0, 168.0, 28)),
 # The opt-in configurations measured at the real size (overrides of the
 # default config; "loudness" is the NormalizationMethod's value), and what
 # each changes in a batch's launches: key STFT passes (81 launches of kernel A
-# each), one whole-track launch of kernel D by the percussive fallback, and
-# the windowed medians (the chroma smoothing's one, and two an HPSS iteration).
+# each), one whole-track launch of kernel D by the percussive fallback, the
+# windowed medians (the chroma smoothing's one, and two an HPSS iteration),
+# and the HPCP kernel's (one a key chunk where the bisection picks the peaks).
 OPT_IN_CONFIGS = {
     "hpss": dict(overrides=dict(enable_hpss_onsets=True,
                                 enable_tempogram_percussive_fallback=True,
                                 normalization="loudness"), key_passes=1, whole_track_d=1,
-                 medians=21),
+                 medians=21, hpcp=81),
     "tuned-exact": dict(overrides=dict(enable_key_tuning_compensation=True,
                                        key_hpcp_approx_peaks=False), key_passes=2,
-                        whole_track_d=0, medians=1),
+                        whole_track_d=0, medians=1, hpcp=0),
     "log-frequency": dict(overrides=dict(enable_key_log_frequency=True, enable_key_hpcp=False),
-                          key_passes=1, whole_track_d=0, medians=1),
+                          key_passes=1, whole_track_d=0, medians=1, hpcp=0),
 }
 
 

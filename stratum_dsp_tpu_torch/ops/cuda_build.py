@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 
-_vp, _int = ctypes.c_void_p, ctypes.c_int
+_vp, _int, _ll, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     "stratum_polyphase_stage2": ([_vp, _vp, _vp] + [_int] * 7 + [_vp], _int),
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "stratum_viterbi_backtrack": ([_vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_empty_launch": ([_int, _int, _int, _vp], _int),
     "stratum_window_median": ([_vp, _vp, _vp] + [_int] * 5 + [_vp], _int),
+    "stratum_hpcp_bisect": ([_vp, _ll, _int, _vp, _ll, _int, _vp, _ll, _int, _vp]
+                            + [_int] * 5 + [_f32, _int, _vp], _int),
 }
 
 
