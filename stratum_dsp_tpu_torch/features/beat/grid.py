@@ -7,10 +7,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ... import tracing
-from ...ops import masked
+from ...ops import masked, tables
 from ...ops.downbeats import downbeat_mask
 from ...ops.masked import fma
 from . import hmm, time_signature as ts
@@ -34,9 +34,8 @@ class BeatGridTensor(NamedTuple):
 
 
 def _beats_per_bar(sig_index):
-    with tracing.host_read("grid.beats_per_bar"):
-        beats_per_bar = torch.as_tensor(ts.BEATS_PER_BAR, device=sig_index.device)
-    return beats_per_bar[sig_index]
+    return tables.on(sig_index.device, np.asarray, ts.BEATS_PER_BAR, np.float32,
+                     site="grid.beats_per_bar")[sig_index]
 
 
 def detect_downbeats(times, n_beats, bpm, sig_index):

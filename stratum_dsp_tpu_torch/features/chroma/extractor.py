@@ -22,7 +22,6 @@
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -30,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import tracing
-from ...ops import hpcp, masked
+from ...ops import hpcp, masked, tables
 from .postprocess import l2_normalize_zero
 
 A4_FREQ = 440.0
@@ -48,13 +47,16 @@ def semitones_of_bins(sample_rate: int, fft_size: int, n_bins: int) -> np.ndarra
     return 12.0 * np.log2(f / A4_FREQ) + SEMITONE_OFFSET
 
 
+def _semitones_f32(sample_rate: int, fft_size: int, n_bins: int) -> np.ndarray:
+    return semitones_of_bins(sample_rate, fft_size, n_bins).astype(np.float32)
+
+
 def _chroma_in_band(sample_rate: int, fft_size: int, fmin_hz: float, fmax_hz: float) -> np.ndarray:
     freqs = bin_freqs(sample_rate, fft_size, fft_size // 2 + 1)
     return ((freqs >= fmin_hz) & (freqs <= min(fmax_hz, sample_rate / 2))
             & (freqs < sample_rate / 2))
 
 
-@functools.lru_cache(maxsize=32)
 def chroma_projection_matrix(sample_rate: int, fft_size: int, soft_mapping: bool, sigma: float,
                              tuning_offset: float = 0.0, fmin_hz: float = CHROMA_FMIN_HZ,
                              fmax_hz: float = CHROMA_FMAX_HZ) -> np.ndarray:
@@ -97,6 +99,11 @@ def _soft_class_weights(pc: torch.Tensor, sigma: float, soft: bool = True):
     return out
 
 
+def _chroma_semitones_in_band(sample_rate: int, fft_size: int, fmin_hz: float, fmax_hz: float):
+    return (_semitones_f32(sample_rate, fft_size, fft_size // 2 + 1),
+            _chroma_in_band(sample_rate, fft_size, fmin_hz, fmax_hz).astype(np.float32))
+
+
 def chroma_projection_dynamic(sample_rate: int, fft_size: int, soft_mapping: bool, sigma: float,
                               tuning_offset: torch.Tensor, fmin_hz: float = CHROMA_FMIN_HZ,
                               fmax_hz: float = CHROMA_FMAX_HZ) -> torch.Tensor:
@@ -104,10 +111,8 @@ def chroma_projection_dynamic(sample_rate: int, fft_size: int, soft_mapping: boo
     tuning-compensated form of ``chroma_projection_matrix``)."""
     n_bins = fft_size // 2 + 1
     dev = tuning_offset.device
-    semis = torch.as_tensor(semitones_of_bins(sample_rate, fft_size, n_bins).astype(np.float32),
-                            device=dev)
-    in_band = torch.as_tensor(_chroma_in_band(sample_rate, fft_size, fmin_hz, fmax_hz)
-                              .astype(np.float32), device=dev)
+    semis, in_band = tables.on(dev, _chroma_semitones_in_band, sample_rate, fft_size, fmin_hz,
+                               fmax_hz, site="chroma.semitones")
     pc = torch.remainder(semis[None, :] - tuning_offset.to(torch.float32)[:, None], 12.0)
     w = torch.zeros((tuning_offset.shape[0], n_bins, 12), dtype=torch.float32, device=dev)
     for cls, wt in _soft_class_weights(pc, sigma, soft_mapping):
@@ -150,7 +155,6 @@ def _harmonic_grid(sample_rate: int, fft_size: int, hi_bin: int, num_harmonics: 
     return semis, hw, h_ok
 
 
-@functools.lru_cache(maxsize=32)
 def hpcp_harmonic_matrix(sample_rate: int, fft_size: int, hi_bin: int, sigma: float,
                          tuning_offset: float, num_harmonics: int, harmonic_decay: float,
                          fmin: float, fmax: float) -> np.ndarray:
@@ -173,21 +177,16 @@ def hpcp_harmonic_matrix(sample_rate: int, fft_size: int, hi_bin: int, sigma: fl
     return m
 
 
-def hpcp_harmonic_matrix_on(device, sample_rate: int, fft_size: int, hi_bin: int, sigma: float,
-                            tuning_offset: float, num_harmonics: int, harmonic_decay: float,
-                            fmin: float, fmax: float) -> torch.Tensor:
-    """``hpcp_harmonic_matrix`` on ``device``, copied there once per device
-    and parameters: a copy from pageable memory waits for the stream, so a
-    copy per key chunk would drain it each time."""
-    return _hpcp_harmonic_matrix_on(str(torch.device(device)), sample_rate, fft_size, hi_bin,
-                                    sigma, tuning_offset, num_harmonics, harmonic_decay, fmin,
-                                    fmax)
+def hpcp_harmonic_matrix_on(device, *params) -> torch.Tensor:
+    """``hpcp_harmonic_matrix(*params)`` on ``device``, shared (``ops/tables.py``)."""
+    return tables.on(device, hpcp_harmonic_matrix, *params, site="chroma.hpcp_matrix")
 
 
-@functools.lru_cache(maxsize=32)
-def _hpcp_harmonic_matrix_on(device: str, *params) -> torch.Tensor:
-    with tracing.host_read("chroma.hpcp_matrix"):
-        return torch.as_tensor(hpcp_harmonic_matrix(*params), device=device)
+def _harmonic_grid_f32(*params):
+    """``_harmonic_grid``'s semitone positions in f32 and its weights times
+    its in-band mask ``[K, H]`` f32."""
+    semis, hw, h_ok = _harmonic_grid(*params)
+    return semis.astype(np.float32), hw.astype(np.float32) * h_ok.astype(np.float32)
 
 
 def hpcp_harmonic_matrix_dynamic(sample_rate: int, fft_size: int, hi_bin: int, sigma: float,
@@ -197,16 +196,23 @@ def hpcp_harmonic_matrix_dynamic(sample_rate: int, fft_size: int, hi_bin: int, s
     hi_bin, 12]`` with the leading dims of ``tuning_offset`` (per-track
     offsets give ``[B, hi_bin, 12]``)."""
     dev = tuning_offset.device
-    semis_np, hw_np, ok_np = _harmonic_grid(sample_rate, fft_size, hi_bin, num_harmonics,
-                                            harmonic_decay, fmin, fmax)
-    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
+    semis, scale = tables.on(dev, _harmonic_grid_f32, sample_rate, fft_size, hi_bin,
+                             num_harmonics, harmonic_decay, fmin, fmax, site="chroma.hpcp_grid")
     t = tuning_offset.to(torch.float32)
-    pc = torch.remainder(f32(semis_np) - t[..., None, None], 12.0)  # [..., K, H]
-    scale = f32(hw_np) * f32(ok_np)
+    pc = torch.remainder(semis - t[..., None, None], 12.0)  # [..., K, H]
     out = torch.zeros(pc.shape[:-2] + (hi_bin, 12), dtype=torch.float32, device=dev)
     for cls, wt in _soft_class_weights(pc, sigma):
         out.scatter_add_(-1, cls, wt * scale)
     return out
+
+
+def peak_band_mask(n_bins: int, hi_bin: int, sample_rate: int, fft_size: int, fmin: float,
+                   fmax: float) -> np.ndarray:
+    """The bins ``k < hi_bin`` a peak may lie on: the spectrum's interior
+    (bins 1 .. n_bins - 2) within ``[fmin, fmax]``."""
+    freqs = bin_freqs(sample_rate, fft_size, n_bins)[:hi_bin]
+    return ((np.arange(hi_bin) >= 1) & (np.arange(hi_bin) < n_bins - 1)
+            & (freqs >= fmin) & (freqs <= fmax))
 
 
 def frames_to_hpcp(spec, sample_rate: int, fft_size: int, sigma: float, tuning_offset,
@@ -252,14 +258,10 @@ def frames_to_hpcp(spec, sample_rate: int, fft_size: int, sigma: float, tuning_o
             band = hpcp.peak_band(n_bins, hi_bin, sample_rate, fft_size, fmin, fmax)
             return hpcp.hpcp_bisect(spec_b, sel, band, k_top, p, m)
 
-        freqs = bin_freqs(sample_rate, fft_size, n_bins)[:hi_bin]
         prev = torch.cat([sel[..., :1], sel[..., :-1]], dim=-1)
         nxt = torch.cat([sel[..., 1:], sel[..., -1:]], dim=-1)
-        # interior of the full spectrum: bins 1 .. n_bins - 2
-        static_ok = ((np.arange(hi_bin) >= 1) & (np.arange(hi_bin) < n_bins - 1)
-                     & (freqs >= fmin) & (freqs <= fmax))
-        with tracing.host_read("chroma.peak_band"):
-            static_ok = torch.as_tensor(static_ok, device=spec.device)
+        static_ok = tables.on(spec.device, peak_band_mask, n_bins, hi_bin, sample_rate, fft_size,
+                              fmin, fmax, site="chroma.peak_band")
         peak_ok = static_ok & (sel > prev) & (sel >= nxt)
         peak_vals = torch.where(peak_ok, sel, float("-inf"))
         raw = spec_b.clamp_min(0.0)
@@ -353,28 +355,33 @@ def estimate_tuning_offset(spec: torch.Tensor, fvalid: torch.Tensor, sample_rate
     [-0.5, 0.5), 0 where the residuals are not concentrated (r < 0.05)."""
     _, t, n_bins = spec.shape
     dev = spec.device
-    freqs = bin_freqs(sample_rate, fft_size, n_bins)
     fmin = max(fmin_hz, 20.0)
     fmax = float(np.clip(fmax_hz, fmin + 1.0, sample_rate / 2))
-    in_band = torch.as_tensor((freqs >= fmin) & (freqs <= fmax), device=dev)
-    step_mask = torch.as_tensor((np.arange(t) % max(frame_step, 1)) == 0, device=dev)
+    in_band = tables.on(dev, band_mask, sample_rate, fft_size, n_bins, fmin, fmax,
+                        site="tuning.in_band")
+    step_mask = (torch.arange(t, device=dev) % max(frame_step, 1)) == 0
     use_frame = fvalid & step_mask[None, :]
     x = spec.clamp_min(0.0) * in_band
     peak = x.amax(dim=-1, keepdim=True)
     thr = peak * float(np.clip(peak_rel_threshold, 0.0, 1.0))
     sel = use_frame[..., None] & (x >= thr) & (peak > 1e-12) & in_band
     w = torch.where(sel, torch.sqrt(x), 0.0)
-    s_sin, s_cos = tuning_residual_sin_cos(sample_rate, fft_size, n_bins, dev)
+    s_sin, s_cos = tables.on(dev, tuning_residual_sin_cos, sample_rate, fft_size, n_bins)
     return circular_mean_offset((w * s_sin).sum(dim=(-2, -1)), (w * s_cos).sum(dim=(-2, -1)),
                                 w.sum(dim=(-2, -1)))
 
 
+def band_mask(sample_rate: int, fft_size: int, n_bins: int, fmin: float, fmax: float):
+    """The bins ``[n_bins]`` whose frequency lies in ``[fmin, fmax]``."""
+    freqs = bin_freqs(sample_rate, fft_size, n_bins)
+    return (freqs >= fmin) & (freqs <= fmax)
+
+
 def tuning_residual_sin_cos(sample_rate: int, fft_size: int, n_bins: int, device):
     """sin and cos ``[n_bins]`` of 2 pi times each bin's residual from its
-    nearest semitone (f32 on the device)."""
-    with tracing.host_read("tuning.residuals"):
-        semis = torch.as_tensor(
-            semitones_of_bins(sample_rate, fft_size, n_bins).astype(np.float32), device=device)
+    nearest semitone (f32 on ``device``), made through ``ops/tables.py``."""
+    semis = tables.on(device, _semitones_f32, sample_rate, fft_size, n_bins,
+                      site="tuning.residuals")
     angle = 2.0 * np.pi * (semis - torch.round(semis))
     return torch.sin(angle), torch.cos(angle)
 
@@ -387,7 +394,6 @@ def circular_mean_offset(sum_sin, sum_cos, sum_w) -> torch.Tensor:
     return torch.where((sum_w > 1e-6) & (r >= 0.05), delta, 0.0)
 
 
-@functools.lru_cache(maxsize=8)
 def log_frequency_projection(sample_rate: int, fft_size: int, fmin_hz: float,
                              fmax_hz: float) -> Tuple[np.ndarray, int]:
     """Static ``[K, n_semitone_bins]`` linear -> log-frequency interpolation
@@ -419,7 +425,6 @@ def log_frequency_projection(sample_rate: int, fft_size: int, fmin_hz: float,
     return w, bin_min
 
 
-@functools.lru_cache(maxsize=8)
 def semitone_fold_matrix(n_semitone_bins: int, semitone_offset: int) -> np.ndarray:
     """``[n_semitone_bins, 12]`` mod-12 fold (extractor.rs:937-981)."""
     w = np.zeros((n_semitone_bins, 12), dtype=np.float32)

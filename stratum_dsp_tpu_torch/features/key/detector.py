@@ -16,8 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ... import tracing
 from ...config import AnalysisConfig, TemplateSet
+from ...ops import tables
 
 from . import scoring
 from .templates import key_templates
@@ -33,9 +33,8 @@ class KeyResult(NamedTuple):
 
 
 def _templates(cfg: AnalysisConfig, device, template_set: Optional[TemplateSet] = None):
-    with tracing.host_read("key.templates"):
-        return torch.as_tensor(key_templates(template_set or cfg.key_template_set),
-                               device=device)
+    return tables.on(device, key_templates, template_set or cfg.key_template_set,
+                     site="key.templates")
 
 
 def _weighted(chroma, weights, frame_mask):

@@ -20,7 +20,7 @@ import torch
 from ... import tracing
 from ...config import AnalysisConfig
 
-from ...ops import masked
+from ...ops import masked, tables
 from ...ops.stft import stft_reduce
 from ..chroma import extractor as chx
 from ..chroma.postprocess import l2_normalize_zero, sharpen_chroma, smooth_chroma_median
@@ -108,8 +108,9 @@ def _stream_key_stft(samples, lengths, cfg: AnalysisConfig, sample_rate: int, re
 
 def _device_copies(**tensors):
     """A getter of ``tensors`` (tensors or other values) copied once to each
-    device: the reducers' constants, where time blocks of the key STFT lie
-    on other devices than the batch."""
+    device, where time blocks of the key STFT lie on other devices than the
+    batch: a call's own data (the per-track tuning and its projection, the
+    HPSS mask). Constants come from ``ops/tables.py``."""
     copies = {}
 
     def on(device):
@@ -131,27 +132,24 @@ def estimate_tuning_streamed(samples, lengths, cfg: AnalysisConfig, sample_rate:
     keep_bins = _key_keep_bins(cfg, sample_rate, frame_size)
     halo = _key_halo(cfg)
     n_bins = keep_bins if keep_bins is not None else frame_size // 2 + 1
-    dev = samples.device
-    freqs = chx.bin_freqs(sample_rate, frame_size, n_bins)
     fmin, fmax = 80.0, float(np.clip(2000.0, 81.0, sample_rate / 2))
-    r_sin, r_cos = chx.tuning_residual_sin_cos(sample_rate, frame_size, n_bins, dev)
-    with tracing.host_read("tuning.in_band"):
-        in_band = torch.as_tensor((freqs >= fmin) & (freqs <= fmax), device=dev)
-    consts = _device_copies(in_band=in_band, r_sin=r_sin, r_cos=r_cos)
     step = max(cfg.key_tuning_frame_step, 1)
     thr_rel = float(np.clip(cfg.key_tuning_peak_rel_threshold, 0.0, 1.0))
 
     def reducer(spec, fidx, fvalid, carry):
-        k = consts(spec.device)
+        in_band = tables.on(spec.device, chx.band_mask, sample_rate, frame_size, n_bins, fmin,
+                            fmax, site="tuning.in_band")
+        r_sin, r_cos = tables.on(spec.device, chx.tuning_residual_sin_cos, sample_rate,
+                                 frame_size, n_bins)
         cond = _condition_chunk(spec, fvalid, cfg)
         c = spec.shape[1] - 2 * halo
         central = cond[:, halo:halo + c, :].clamp_min(0.0)
         use_frame = fvalid[:, halo:halo + c] & ((fidx[halo:halo + c] % step) == 0)[None, :]
-        x = central * k["in_band"]
+        x = central * in_band
         peak = x.amax(dim=-1, keepdim=True)
-        sel = use_frame[..., None] & (x >= peak * thr_rel) & (peak > 1e-12) & k["in_band"]
+        sel = use_frame[..., None] & (x >= peak * thr_rel) & (peak > 1e-12) & in_band
         w = torch.where(sel, torch.sqrt(x), 0.0).to(torch.float32)
-        return {"sin": (w * k["r_sin"]).sum(dim=-1), "cos": (w * k["r_cos"]).sum(dim=-1),
+        return {"sin": (w * r_sin).sum(dim=-1), "cos": (w * r_cos).sum(dim=-1),
                 "w": w.sum(dim=-1)}, carry
 
     outs, _, _ = _stream_key_stft(samples, lengths, cfg, sample_rate, reducer, halo,
@@ -211,6 +209,16 @@ def _hpcp(central, cfg: AnalysisConfig, sample_rate: int, frame_size: int, tunin
         approx_peaks=cfg.key_hpcp_approx_peaks, **band)
 
 
+def _log_frequency_tables(sample_rate: int, frame_size: int) -> dict:
+    lproj, s_min = chx.log_frequency_projection(sample_rate, frame_size, 100.0, 5000.0)
+    return {"log_proj": lproj, "fold_m": chx.semitone_fold_matrix(lproj.shape[1], s_min)}
+
+
+def _chroma_projection(sample_rate: int, frame_size: int, soft: bool, sigma: float,
+                       tuning: float, keep_bins) -> np.ndarray:
+    return chx.chroma_projection_matrix(sample_rate, frame_size, soft, sigma, tuning)[:keep_bins]
+
+
 def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int,
                          tuning_offset=0.0, hpss_mask: HpssMask = None,
                          chunk_frames: int = 512, mesh=None):
@@ -220,30 +228,27 @@ def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int
     frame_size, _ = _key_stft_params(cfg)
     keep_bins = _key_keep_bins(cfg, sample_rate, frame_size)
     halo = _key_halo(cfg)
-    dev = samples.device
     per_track_tuning = torch.is_tensor(tuning_offset)
-    proj = log_proj = fold_m = None
-
-    if cfg.enable_key_log_frequency:
-        lproj, s_min = chx.log_frequency_projection(sample_rate, frame_size, 100.0, 5000.0)
-        fold_m = torch.as_tensor(chx.semitone_fold_matrix(lproj.shape[1], s_min), device=dev)
-        log_proj = torch.as_tensor(lproj, device=dev)
-    elif not cfg.enable_key_hpcp:
-        if per_track_tuning:
-            proj = chx.chroma_projection_dynamic(sample_rate, frame_size, cfg.soft_chroma_mapping,
-                                                 cfg.soft_mapping_sigma, tuning_offset)
-        else:
-            proj = torch.as_tensor(chx.chroma_projection_matrix(
-                sample_rate, frame_size, cfg.soft_chroma_mapping, cfg.soft_mapping_sigma,
-                float(tuning_offset)), device=dev)
-        if keep_bins is not None:
-            proj = proj[..., :keep_bins, :]
-    consts = _device_copies(proj=proj, log_proj=log_proj, fold_m=fold_m,
-                            tuning=tuning_offset,
+    proj = None
+    if per_track_tuning and not (cfg.enable_key_log_frequency or cfg.enable_key_hpcp):
+        proj = chx.chroma_projection_dynamic(sample_rate, frame_size, cfg.soft_chroma_mapping,
+                                             cfg.soft_mapping_sigma, tuning_offset)
+        proj = proj[..., :keep_bins, :]
+    copies = _device_copies(proj=proj, tuning=tuning_offset,
                             mask_ds=hpss_mask.mask_ds if hpss_mask is not None else None)
 
+    def constants(device) -> dict:
+        if cfg.enable_key_log_frequency:
+            return tables.on(device, _log_frequency_tables, sample_rate, frame_size,
+                             site="key.log_frequency")
+        if cfg.enable_key_hpcp or per_track_tuning:
+            return {}
+        return {"proj": tables.on(device, _chroma_projection, sample_rate, frame_size,
+                                  cfg.soft_chroma_mapping, cfg.soft_mapping_sigma,
+                                  float(tuning_offset), keep_bins, site="key.chroma_projection")}
+
     def reducer(spec, fidx, fvalid, carry):
-        k = consts(spec.device)
+        k = copies(spec.device) | constants(spec.device)
         tuning = k["tuning"]
         cond = _condition_chunk(spec, fvalid, cfg)
         c = spec.shape[1] - 2 * halo

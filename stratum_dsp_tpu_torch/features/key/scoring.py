@@ -8,12 +8,10 @@ C..B."""
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from ... import tracing
+from ...ops import tables
 
 EPSILON = 1e-9
 CIRCLE_OF_FIFTHS = (0, 7, 2, 9, 4, 11, 6, 1, 8, 3, 10, 5)
@@ -30,7 +28,6 @@ def stable_argmax(scores, eps: float = TIE_EPS):
     return (scores >= mx - eps).to(torch.uint8).argmax(dim=-1)
 
 
-@functools.lru_cache(maxsize=1)
 def cof_bonus_matrix() -> np.ndarray:
     """[12, 12] bonus factor 0.20*(1 - dist/2) for circle-of-fifths distance <= 2."""
     pos = np.zeros(12, dtype=np.int64)
@@ -56,8 +53,7 @@ def finalize_scores(scores):
     do_norm = (max_major > EPSILON) & (max_minor > EPSILON)
     major = torch.where(do_norm, major / max_major.clamp_min(EPSILON), major)
     minor = torch.where(do_norm, minor / max_minor.clamp_min(EPSILON), minor)
-    with tracing.host_read("key.fifths_bonus"):
-        bonus = torch.as_tensor(cof_bonus_matrix(), device=scores.device)
+    bonus = tables.on(scores.device, cof_bonus_matrix, site="key.fifths_bonus")
     top_major = major.amax(dim=-1, keepdim=True)
     top_minor = minor.amax(dim=-1, keepdim=True)
     major = major + torch.where(top_major > EPSILON, top_major * bonus[stable_argmax(major)], 0.0)

@@ -5,8 +5,6 @@ minor C..B."""
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 
 from ...config import TemplateSet
@@ -27,7 +25,6 @@ def _rotate_and_normalize(c_major, c_minor) -> np.ndarray:
     return (out / np.maximum(norms, 1e-12)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=4)
 def key_templates(template_set: TemplateSet = TemplateSet.KRUMHANSL_KESSLER) -> np.ndarray:
     """The [24, 12] template matrix for the given set."""
     if template_set == TemplateSet.KRUMHANSL_KESSLER:

@@ -11,8 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ... import tracing
 from ...config import AnalysisConfig
+from ...ops import tables
 
 from .tempogram_fft import next_pow2
 
@@ -44,6 +44,26 @@ def comb_bpm_grid(min_bpm: float, max_bpm: float, resolution: float) -> np.ndarr
     return np.asarray(grid, dtype=np.float32)
 
 
+def comb_tables(sample_rate: int, min_bpm: float, max_bpm: float, resolution: float):
+    """The comb grid's periods in samples, their tolerances and the grid."""
+    grid = comb_bpm_grid(min_bpm, max_bpm, resolution)
+    period = 60.0 * sample_rate / grid
+    tol = np.clip(COMB_DEFAULT_TOLERANCE * (COMB_REFERENCE_BPM / grid), COMB_MIN_TOLERANCE,
+                  COMB_MAX_TOLERANCE) * period
+    return period, tol, grid
+
+
+def autocorr_lag_tables(lag_min: int, lag_max: int, sample_rate: int, hop: int, min_bpm: float,
+                        max_bpm: float):
+    """For the lags ``[lag_min, lag_max]``: where a peak may lie (not the
+    run's ends, in the BPM range) and each lag's BPM."""
+    lags = np.arange(lag_min, lag_max + 1, dtype=np.float32)
+    bpm = (60.0 * sample_rate) / (lags * hop)
+    n = len(lags)
+    ok = (np.arange(n) >= 1) & (np.arange(n) < n - 1) & (bpm >= min_bpm) & (bpm <= max_bpm)
+    return ok, bpm
+
+
 def _sort_by_confidence(bpm, conf, valid) -> CandidateList:
     order = torch.sort(torch.where(valid, -conf, float("inf")), dim=-1, stable=True).indices
     return CandidateList(torch.gather(bpm.expand_as(conf), 1, order),
@@ -72,17 +92,11 @@ def autocorr_candidates(onset_pos, onset_valid, t_padded: int, sample_rate: int,
         z = torch.zeros((b, 1), device=dev)
         return CandidateList(z, z, torch.zeros((b, 1), dtype=torch.bool, device=dev))
     sl = acf[:, lag_min:lag_max + 1]
-    n_sl = sl.shape[1]
     max_sl = sl.amax(dim=-1, keepdim=True)
     prev = torch.cat([sl[:, :1], sl[:, :-1]], dim=-1)
     nxt = torch.cat([sl[:, 1:], sl[:, -1:]], dim=-1)
-    lags_np = np.arange(lag_min, lag_max + 1, dtype=np.float32)
-    bpm_np = (60.0 * sample_rate) / (lags_np * hop)
-    static_ok = ((np.arange(n_sl) >= 1) & (np.arange(n_sl) < n_sl - 1)
-                 & (bpm_np >= min_bpm) & (bpm_np <= max_bpm))
-    with tracing.host_read("legacy.autocorr_tables"):
-        static_ok = torch.as_tensor(static_ok, device=dev)
-        bpm_t = torch.as_tensor(bpm_np, device=dev)
+    static_ok, bpm_t = tables.on(dev, autocorr_lag_tables, lag_min, lag_max, sample_rate, hop,
+                                 min_bpm, max_bpm, site="legacy.autocorr_tables")
     is_peak = (static_ok & (sl > prev) & (sl > nxt)
                & (sl - torch.maximum(prev, nxt) >= 0.1 * max_sl) & (max_sl >= EPSILON))
     conf = (sl / acf.amax(dim=-1, keepdim=True).clamp_min(EPSILON)).clamp_max(1.0)
@@ -99,12 +113,8 @@ def comb_candidates(onset_pos, onset_valid, t_padded: int, sample_rate: int, min
     of the same k counted once (see the reference module)."""
     dev = onset_pos.device
     k = onset_pos.shape[1]
-    grid = comb_bpm_grid(min_bpm, max_bpm, resolution)
-    period = 60.0 * sample_rate / grid
-    tol = np.clip(COMB_DEFAULT_TOLERANCE * (COMB_REFERENCE_BPM / grid), COMB_MIN_TOLERANCE,
-                  COMB_MAX_TOLERANCE) * period
-    with tracing.host_read("legacy.comb_tables"):
-        period_t, tol_t, grid_t = (torch.as_tensor(a, device=dev) for a in (period, tol, grid))
+    period_t, tol_t, grid_t = tables.on(dev, comb_tables, sample_rate, min_bpm, max_bpm,
+                                        resolution, site="legacy.comb_tables")
     sorted_pos = torch.sort(torch.where(onset_valid, onset_pos, INT_BIG), dim=-1).values
     sorted_pos = sorted_pos.to(torch.float32)
     n_valid = onset_valid.sum(dim=-1)

@@ -24,7 +24,7 @@ import torch
 from ... import tracing
 from ...config import AnalysisConfig
 
-from ...ops import masked
+from ...ops import masked, tables
 from . import novelty as nov
 from . import tempogram as tg
 from . import tempogram_fft as tft
@@ -337,8 +337,8 @@ def _vote(c256, c512, c1024, nov512, nval512, cfg: AnalysisConfig, sample_rate: 
     best_score = torch.where(do_up, s_dbl, best_score)
 
     # triplet-family search (multi_resolution.rs:764-867)
-    with tracing.host_read("multires.family_factors"):
-        factors = torch.tensor(FAMILY_FACTORS, dtype=torch.float32, device=dev)
+    factors = tables.on(dev, np.asarray, FAMILY_FACTORS, np.float32,
+                        site="multires.family_factors")
     fam_bpm = best_bpm[:, None] * factors
     fam_in = ((fam_bpm >= cfg.min_bpm) & (fam_bpm <= cfg.max_bpm) & (fam_bpm >= 70.0)
               & (fam_bpm <= 180.0))

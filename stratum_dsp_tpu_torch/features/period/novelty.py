@@ -67,8 +67,7 @@ def active_band_names(cfg: AnalysisConfig, sample_rate: int, frame_size: int):
 @functools.lru_cache(maxsize=8)
 def novelty_tables(cfg: AnalysisConfig, sample_rate: int, frame_size: int) -> NoveltyTables:
     """The reducer's constant tables for this config, built once in numpy
-    (and copied once to each device by ``NoveltyTables.on``: a pageable
-    host-to-device copy per batch would wait for the stream)."""
+    (on a device through ``ops/tables.py``)."""
     n_bins = frame_size // 2 + 1
     mel_w = None
     if cfg.enable_tempogram_mel_novelty:

@@ -18,10 +18,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ... import tracing
 from ...config import AnalysisConfig
 
-from ...ops import masked
+from ...ops import masked, tables
 from . import tempogram_autocorr as tac
 from . import tempogram_fft as tft
 
@@ -41,7 +40,6 @@ class TempogramVariant:
     fft_power: torch.Tensor  # [B, NB]
     fft_bpms: np.ndarray  # [NB]
     ac_strength: torch.Tensor  # [B, n_bpm]
-    ac_grid: np.ndarray  # [n_bpm]
     max_fft: torch.Tensor  # [B]
     max_ac: torch.Tensor  # [B]
 
@@ -66,11 +64,11 @@ def compute_variants(curves: Dict[str, torch.Tensor], nov_mask, n_valid, frame_r
         nov = curves[name]
         power, bpms = tft.fft_tempogram_power(nov, nov_mask, n_valid, frame_rate, cfg.min_bpm,
                                               cfg.max_bpm, fft_size)
-        strength, grid = tac.autocorr_tempogram(nov, nov_mask, n_valid, frame_rate, cfg.min_bpm,
-                                                cfg.max_bpm, cfg.bpm_resolution)
+        strength, _ = tac.autocorr_tempogram(nov, nov_mask, n_valid, frame_rate, cfg.min_bpm,
+                                             cfg.max_bpm, cfg.bpm_resolution)
         variants.append(TempogramVariant(
             name=name, weight=w, fft_power=power, fft_bpms=bpms, ac_strength=strength,
-            ac_grid=grid, max_fft=power.amax(dim=-1).clamp_min(1e-12),
+            max_fft=power.amax(dim=-1).clamp_min(1e-12),
             max_ac=strength.amax(dim=-1).clamp_min(1e-12)))
     return variants
 
@@ -95,12 +93,13 @@ def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig
                or cfg.tempogram_band_consensus_bonus > 0.0)
     score_variants = [full] if (cfg.tempogram_band_seed_only or not use_aux) else variants
 
-    def as_t(a):
-        with tracing.host_read("tempogram.tables"):
-            return torch.as_tensor(a, device=dev)
-
-    fft_primary_bpm = as_t(full.fft_bpms)[full.fft_power.argmax(dim=-1)]
-    ac_primary_bpm = as_t(full.ac_grid)[full.ac_strength.argmax(dim=-1)]
+    # every variant's BPM axes, on the device
+    fft_bpms = tables.on(dev, tft.fft_bpm_bins, fft_size, frame_rate, min_bpm, max_bpm,
+                         site="tempogram.fft_bpms")[2]
+    grid_args = (min_bpm, max_bpm, cfg.bpm_resolution)
+    ac_grid = tac.grid_on(dev, *grid_args)
+    fft_primary_bpm = fft_bpms[full.fft_power.argmax(dim=-1)]
+    ac_primary_bpm = ac_grid[full.ac_strength.argmax(dim=-1)]
 
     # seeds: FFT local maxima and autocorr top entries of every variant
     seeds = []
@@ -109,13 +108,14 @@ def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig
         left = torch.cat([p[:, :1], p[:, :-1]], dim=-1)
         right = torch.cat([p[:, 1:], p[:, -1:]], dim=-1)
         peaks = torch.where((p >= left) & (p >= right), p, 0.0)
-        seeds.append(as_t(v.fft_bpms)[_top_k_indices(peaks, min(SEEDS_PER_METHOD, p.shape[-1]))])
+        seeds.append(fft_bpms[_top_k_indices(peaks, min(SEEDS_PER_METHOD, p.shape[-1]))])
         s = v.ac_strength
-        seeds.append(as_t(v.ac_grid)[_top_k_indices(s, min(SEEDS_PER_METHOD, s.shape[-1]))])
+        seeds.append(ac_grid[_top_k_indices(s, min(SEEDS_PER_METHOD, s.shape[-1]))])
     seeds += [fft_primary_bpm[:, None], ac_primary_bpm[:, None]]
     seed_bpms = torch.cat(seeds, dim=-1)
 
-    cands = (seed_bpms[:, :, None] * as_t(np.asarray(FOLD_FACTORS, np.float32))).reshape(b, -1)
+    folds = tables.on(dev, np.asarray, FOLD_FACTORS, np.float32, site="tempogram.fold_factors")
+    cands = (seed_bpms[:, :, None] * folds).reshape(b, -1)
     cvalid = (cands >= min_bpm) & (cands <= max_bpm) & torch.isfinite(cands)
     order = torch.sort(torch.where(cvalid, cands, float("inf")), dim=-1, stable=True).indices
     cands = torch.gather(cands, 1, order)
@@ -130,7 +130,7 @@ def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig
         if v.weight <= 0.0:
             continue
         fv = tft.fft_lookup_nearest(v.fft_power, v.fft_bpms, cands, DEDUP_TOL, frame_rate, fft_size)
-        av = tac.ac_lookup_nearest(v.ac_strength, v.ac_grid, cands, ac_tol)
+        av = tac.ac_lookup_nearest(v.ac_strength, grid_args, cands, ac_tol)
         fft_acc = fft_acc + v.weight * (fv / v.max_fft[:, None]).clamp(0.0, 1.0)
         ac_acc = ac_acc + v.weight * (av / v.max_ac[:, None]).clamp(0.0, 1.0)
     fft_norm = masked.cdiv(fft_acc, w_sum).clamp(0.0, 1.0)
@@ -146,7 +146,7 @@ def estimate_bpm_tempogram(variants: List[TempogramVariant], cfg: AnalysisConfig
                 continue
             sf = (tft.fft_lookup_nearest(v.fft_power, v.fft_bpms, cands, DEDUP_TOL, frame_rate,
                                          fft_size) / v.max_fft[:, None]).clamp(0.0, 1.0)
-            sa = (tac.ac_lookup_nearest(v.ac_strength, v.ac_grid, cands, ac_tol)
+            sa = (tac.ac_lookup_nearest(v.ac_strength, grid_args, cands, ac_tol)
                   / v.max_ac[:, None]).clamp(0.0, 1.0)
             support = support + (torch.maximum(sf, sa) >= support_threshold)
         score = score * torch.where(support >= 2, 1.0 + bonus * (support.float() - 1.0), 1.0)

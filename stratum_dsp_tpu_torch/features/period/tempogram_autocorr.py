@@ -11,7 +11,7 @@ import functools
 import numpy as np
 import torch
 
-from ... import tracing
+from ...ops import tables
 from ...ops.masked import cdiv
 from .tempogram_fft import next_pow2
 
@@ -50,21 +50,26 @@ def autocorr_tempogram(novelty, nov_mask, n_valid, frame_rate: float, min_bpm: f
     lags = bpm_lags(min_bpm, max_bpm, resolution, frame_rate)
     max_lag = int(lags.max()) if len(lags) else 0
     acf = linear_autocorrelation(torch.where(nov_mask, novelty, 0.0), max_lag)
-    with tracing.host_read("autocorr.lags"):
-        lag_t = torch.as_tensor(lags, device=novelty.device)
+    lag_t = tables.on(novelty.device, bpm_lags, min_bpm, max_bpm, resolution, frame_rate,
+                      site="autocorr.lags")
     count = (n_valid[:, None] - lag_t[None, :]).clamp_min(0)
     strength = torch.where(count > 0, acf[:, lag_t] / count.clamp_min(1), 0.0)
     return strength, grid
 
 
-def ac_lookup_nearest(strength, grid: np.ndarray, query, tol: float):
-    """Nearest grid point within ``tol`` BPM (tempogram.rs:518-529); half-grid
-    queries resolve to the lower point."""
+def grid_on(device, min_bpm: float, max_bpm: float, resolution: float) -> torch.Tensor:
+    """``bpm_grid`` on ``device``, shared (``ops/tables.py``)."""
+    return tables.on(device, bpm_grid, min_bpm, max_bpm, resolution, site="autocorr.grid")
+
+
+def ac_lookup_nearest(strength, grid_args: tuple, query, tol: float):
+    """Nearest point of ``bpm_grid(*grid_args)`` within ``tol`` BPM
+    (tempogram.rs:518-529); half-grid queries resolve to the lower point."""
+    grid = bpm_grid(*grid_args)
     g0 = float(grid[0])
     res = float(grid[1] - grid[0]) if len(grid) > 1 else 1.0
     idx = torch.ceil(cdiv(query - g0, res) - 0.5).to(torch.int64).clamp(0, len(grid) - 1)
-    with tracing.host_read("autocorr.grid"):
-        grid_t = torch.as_tensor(grid, device=strength.device)
+    grid_t = grid_on(strength.device, *grid_args)
     ok = (grid_t[idx] - query).abs() <= tol
     vals = torch.gather(strength, -1, idx.reshape(strength.shape[0], -1)).reshape(query.shape)
     return torch.where(ok, vals, 0.0)

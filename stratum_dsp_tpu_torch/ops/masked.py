@@ -25,9 +25,7 @@ def rdiv(num: float, x: torch.Tensor) -> torch.Tensor:
     """``num / x`` as a true division. PyTorch's ``scalar / tensor`` is
     ``x.reciprocal() * scalar``, which rounds twice and differs from the
     reference's division in the last bit."""
-    with tracing.host_read("masked.rdiv"):
-        num = x.new_tensor(num)
-    return torch.div(num, x)
+    return torch.div(x.new_full((), num), x)
 
 
 def fma(a, b, c) -> torch.Tensor:

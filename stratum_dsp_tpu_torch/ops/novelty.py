@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from .. import tracing
 from . import cuda_build, masked
+from .tables import on as tables_on
 
 EPSILON = 1e-10
 PCOLS = 128  # packed output columns
@@ -60,7 +61,6 @@ class NoveltyTables:
     # per sub-band i: [(lo, hi, t0, t1)] runs whose clamped filter differs
     # from the full-band one (the plain version's edge terms)
     edge_runs: tuple = dataclasses.field(init=False)
-    _on: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(init=False, default_factory=dict)
 
     def __post_init__(self):
         self.bands = tuple((int(s), int(e)) for s, e in self.bands)
@@ -164,19 +164,19 @@ class NoveltyTables:
         tasks = np.asarray([t for tasks in rounds for t in tasks], np.int32).reshape(-1, 4)
         return tasks, starts.astype(np.int32)
 
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """The tables the plain version and the kernel read, by name."""
+        t = {"sf_mask": self.sf_mask, "ew": self.ew, "bin_band": self.bin_band.view(np.int32),
+             "edges": self.edge_windows.reshape(-1)}
+        if self.mel_w is not None:
+            tasks, rounds = self.mel_tasks
+            t.update(mel_w=self.mel_w, mel_pack=self.mel_packed[1], mel_tasks=tasks.reshape(-1),
+                     mel_rounds=rounds)
+        return t
+
     def on(self, device) -> Dict[str, torch.Tensor]:
-        """The tables as tensors on ``device``, made once per device."""
-        key = str(torch.device(device))
-        if key not in self._on:
-            t = {"sf_mask": self.sf_mask, "ew": self.ew,
-                 "bin_band": self.bin_band.view(np.int32),
-                 "edges": self.edge_windows.reshape(-1)}
-            if self.mel_w is not None:
-                tasks, rounds = self.mel_tasks
-                t.update(mel_w=self.mel_w, mel_pack=self.mel_packed[1],
-                         mel_tasks=tasks.reshape(-1), mel_rounds=rounds)
-            self._on[key] = {n: torch.as_tensor(v, device=device) for n, v in t.items()}
-        return self._on[key]
+        """``arrays()`` as tensors on ``device``, shared (``ops/tables.py``)."""
+        return tables_on(device, self.arrays, site="novelty.tables")
 
 
 def _band_sf_sums(tables: NoveltyTables, sf_mask, log_prev, log_cur, d2):

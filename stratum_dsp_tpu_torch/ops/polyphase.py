@@ -20,31 +20,27 @@ CUDA tensor launches ``csrc/polyphase_stage2.cu`` or raises.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .. import tracing
-from . import cuda_build
+from . import cuda_build, tables
 
 KERNEL_RATIO = 16  # the frame/hop ratio R the CUDA kernel is instantiated for
 FRAME_TILE = 64  # frames per CUDA block, a multiple of R (its R-1 halo rows come from L2)
 
 
+def _twiddles(r: int) -> np.ndarray:
+    ang = 2.0 * np.pi * np.arange(r) / r
+    return np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32)
+
+
 def stage2_tables(r: int, device) -> torch.Tensor:
     """``[4, R]`` f32 tables: twiddle cos and -sin of 2*pi*m/R (float64 on the
     host, as the TPU kernel's ``_twiddle_tables``), then the per-frame mix
-    phase cos/sin of f32 ``m * (2*pi/R)`` (as its in-kernel iota). Built once
-    per (R, device): a host-to-device copy per launch would stall the stream."""
-    return _stage2_tables(r, str(torch.device(device)))
-
-
-@functools.lru_cache(maxsize=16)
-def _stage2_tables(r: int, device: str) -> torch.Tensor:
-    ang = 2.0 * np.pi * np.arange(r) / r
-    tw = torch.as_tensor(np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32),
-                         device=device)
+    phase cos/sin of f32 ``m * (2*pi/R)`` (as its in-kernel iota), made
+    through ``ops/tables.py``."""
+    tw = tables.on(device, _twiddles, r, site="polyphase.twiddles")
     phi = torch.arange(r, device=device).to(torch.float32) * (2.0 * np.pi / r)
     return torch.cat([tw, torch.stack([torch.cos(phi), torch.sin(phi)])], dim=0)
 
@@ -54,13 +50,13 @@ def polyphase_stage2_plain(bd: torch.Tensor, r: int, ext: int, keep_bins: int) -
     b, ebp, kp2 = bd.shape
     kp = kp2 // 2
     rounded = bd.dtype == torch.bfloat16
-    tables = stage2_tables(r, bd.device)
+    tab = tables.on(bd.device, stage2_tables, r)
     rows = ext + r - 1
     x = bd[:, :rows].to(torch.float32)
     dev = bd.device
     cls = ((torch.arange(rows, device=dev) % r)[:, None]
            * (torch.arange(kp, device=dev) % r)[None, :]) % r
-    c, s = tables[0][cls], tables[1][cls]
+    c, s = tab[0][cls], tab[1][cls]
     bre, bim = x[..., :kp], x[..., kp:]
     cre = bre * c - bim * s
     cim = bre * s + bim * c
@@ -73,7 +69,7 @@ def polyphase_stage2_plain(bd: torch.Tensor, r: int, ext: int, keep_bins: int) -
         sre = sre + cre[:, i:i + ext]
         sim = sim + cim[:, i:i + ext]
     ph = torch.arange(ext, device=dev) % r
-    cphi, sphi = tables[2][ph][None, :, None], tables[3][ph][None, :, None]
+    cphi, sphi = tab[2][ph][None, :, None], tab[3][ph][None, :, None]
     m1re = torch.cat([sre[..., 1:2], sre[..., :-1]], dim=-1)
     m1im = torch.cat([-sim[..., 1:2], sim[..., :-1]], dim=-1)
     p1re = torch.cat([sre[..., 1:], sre[..., -1:]], dim=-1)
@@ -128,12 +124,12 @@ def polyphase_stage2(bd: torch.Tensor, r: int, ext: int, keep_bins: int) -> torc
     check_kernel_input(bd, r, ext, keep_bins)
     b, ebp, kp2 = bd.shape
     kp = kp2 // 2
-    tables = stage2_tables(r, bd.device)
+    tab = tables.on(bd.device, stage2_tables, r)
     out = torch.empty((b, ext, keep_bins), dtype=torch.bfloat16, device=bd.device)
     lib = cuda_build.library()
     with torch.cuda.device(bd.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.stratum_polyphase_stage2(bd.data_ptr(), tables.data_ptr(), out.data_ptr(),
+        rc = lib.stratum_polyphase_stage2(bd.data_ptr(), tab.data_ptr(), out.data_ptr(),
                                           b, ebp, kp, r, ext, keep_bins, FRAME_TILE, stream)
     cuda_build.check(rc, "polyphase_stage2")
     tracing.count_launch(polyphase_stage2)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import tracing
+from . import tables
 from .polyphase import polyphase_stage2
 
 
@@ -38,12 +38,15 @@ def num_frames(n_samples: int, frame_size: int, hop: int) -> int:
     return (n_samples - frame_size) // hop + 1
 
 
-def hann_window(frame_size: int, device=None) -> torch.Tensor:
-    """Hann window with the reference's (n-1) denominator (extractor.rs:318)."""
+def _hann_window_np(frame_size: int) -> np.ndarray:
     i = np.arange(frame_size, dtype=np.float64)
-    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * i / (frame_size - 1)))
-    with tracing.host_read("stft.window"):
-        return torch.as_tensor(w.astype(np.float32), device=device)
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * i / (frame_size - 1)))).astype(np.float32)
+
+
+def hann_window(frame_size: int, device=None) -> torch.Tensor:
+    """Hann window with the reference's (n-1) denominator (extractor.rs:318),
+    shared (``ops/tables.py``)."""
+    return tables.on(device, _hann_window_np, frame_size, site="stft.window")
 
 
 def extract_frames(region: torch.Tensor, n_frames: int, frame_size: int, hop: int):
@@ -67,6 +70,12 @@ def fused_windowed_basis(n: int, window: torch.Tensor, keep_bins=None, bf16=Fals
     return fused.to(torch.bfloat16) if bf16 else fused
 
 
+def hann_basis(n: int, keep_bins, bf16: bool, device) -> torch.Tensor:
+    """``fused_windowed_basis`` of the (n-1) Hann window on ``device``, made
+    through ``ops/tables.py``."""
+    return fused_windowed_basis(n, hann_window(n, device), keep_bins, bf16)
+
+
 def bf16_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with operands in ``w``'s dtype (bf16 or f32), accumulated
     and returned in f32."""
@@ -85,7 +94,8 @@ def stft_magnitude_chunk(frames: torch.Tensor, basis: torch.Tensor) -> torch.Ten
 
 
 def _poly_block_basis(n: int, hop: int, kp: int, bf16: bool, device) -> torch.Tensor:
-    """[hop, 2*KP] unwindowed DFT basis on the N-point grid, one hop block."""
+    """[hop, 2*KP] unwindowed DFT basis on the N-point grid, one hop block,
+    made through ``ops/tables.py``."""
     phase = _exact_phase(torch.arange(hop, device=device)[:, None],
                          torch.arange(kp, device=device)[None, :], n)
     basis = torch.cat([torch.cos(phase), -torch.sin(phase)], dim=1)
@@ -108,7 +118,7 @@ def polyphase_chunk_magnitudes(samples, start: int, ext: int, frame_size: int, h
     kp = -(-(keep_bins + 1) // 128) * 128  # bin keep_bins feeds the k+1 mix
     ebp = poly_num_blocks(ext, frame_size, hop)
     blocks = samples[:, start * hop:(start + ebp) * hop].reshape(b, ebp, hop)
-    basis = _poly_block_basis(frame_size, hop, kp, bf16, samples.device)
+    basis = tables.on(samples.device, _poly_block_basis, frame_size, hop, kp, bf16)
     bd = bf16_matmul_f32(blocks, basis)
     return polyphase_stage2(bd.to(torch.bfloat16) if bf16 else bd, r, ext, keep_bins)
 
@@ -154,8 +164,7 @@ def stft_reduce(samples: torch.Tensor, lengths: torch.Tensor, frame_size: int, h
         need = (nf_padded + 2 * halo - 1) * hop + frame_size
     samples = F.pad(samples, (lpad, max(need - (t + lpad), 0)))
     if not poly:
-        basis = fused_windowed_basis(frame_size, hann_window(frame_size, samples.device),
-                                     keep_bins, bf16)
+        basis = tables.on(samples.device, hann_basis, frame_size, keep_bins, bf16)
 
     arange_ext = torch.arange(ext, device=samples.device)
     carry = carry_init(b)

@@ -15,13 +15,11 @@ CUDA tensor launches ``csrc/viterbi_decode.cu`` or raises.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .. import tracing
-from . import cuda_build
+from . import cuda_build, tables
 
 NUM_STATES = 5
 # the kernel's block and its shared memory per frame (one warp, and
@@ -32,24 +30,21 @@ SMEM_BYTES_PER_FRAME = 22
 
 def transition_matrix() -> np.ndarray:
     """Row-normalized 0.7/0.15 band matrix ``[5, 5]`` f32, built as the TPU
-    kernel builds it (hmm.rs:184-219)."""
+    kernel builds it (hmm.rs:184-219). The kernel's forward pass relies on
+    its mirror symmetry (``trans[p][s] == trans[4-p][4-s]`` bit for bit),
+    which is checked here."""
     i = np.arange(NUM_STATES)[:, None]
     j = np.arange(NUM_STATES)[None, :]
     d = np.abs(i - j)
     m = np.where(d == 0, 0.7, np.where(d == 1, 0.15, 0.0)).astype(np.float32)
-    return m / m.sum(axis=1, keepdims=True)
-
-
-@functools.lru_cache(maxsize=16)
-def _transitions_on(device: str) -> torch.Tensor:
-    """The table on ``device``, copied there once: a host-to-device copy per
-    call would stall the stream. The kernel's forward pass relies on the
-    table's mirror symmetry (``trans[p][s] == trans[4-p][4-s]`` bit for bit),
-    which is checked here."""
-    table = transition_matrix()
+    table = m / m.sum(axis=1, keepdims=True)
     if table[::-1, ::-1].tobytes() != table.tobytes():
         raise AssertionError("the Viterbi transition table is not mirror-symmetric")
-    return torch.as_tensor(table, device=device)
+    return table
+
+
+def _transitions(device) -> torch.Tensor:
+    return tables.on(device, transition_matrix, site="viterbi.transitions")
 
 
 def backtrack_plain(backptrs: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
@@ -67,7 +62,7 @@ def backtrack_plain(backptrs: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 def viterbi_decode_plain(emissions: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: a loop over frames on ``[B, 5]``."""
     b, t = emissions.shape
-    trans = _transitions_on(str(emissions.device))
+    trans = _transitions(emissions.device)
     v = torch.full((b, NUM_STATES), 1.0 / NUM_STATES, device=emissions.device) \
         * emissions[:, :1]
     backptrs = torch.zeros((b, t, NUM_STATES), dtype=torch.int64, device=emissions.device)
@@ -86,7 +81,7 @@ def live_frames(emissions: torch.Tensor) -> torch.Tensor:
     emissions say), and ``T`` where that never happens. A loop over frames,
     for ``bound_ms``."""
     b, t = emissions.shape
-    trans = _transitions_on(str(emissions.device))
+    trans = _transitions(emissions.device)
     v = torch.full((b, NUM_STATES), 1.0 / NUM_STATES, device=emissions.device) \
         * emissions[:, :1]
     frames = torch.full((b,), t, dtype=torch.int64, device=emissions.device)
@@ -129,7 +124,7 @@ def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"viterbi_decode kernel takes at most "
                          f"{lib.stratum_viterbi_max_frames()} frames, got {t}")
     emissions = emissions.contiguous()
-    trans = _transitions_on(str(emissions.device))
+    trans = _transitions(emissions.device)
     states = torch.empty((b, t), dtype=torch.int32, device=emissions.device)
     with torch.cuda.device(emissions.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -48,8 +48,9 @@ import torch.nn.functional as F
 from .. import tracing
 from ..config import AnalysisConfig
 from ..features.period import novelty as nov
+from ..ops import tables
 from ..ops.masked import scan_sum, sqrt_f32
-from ..ops.stft import extract_frames, fused_windowed_basis, hann_window, stft_magnitude_chunk
+from ..ops.stft import extract_frames, hann_basis, stft_magnitude_chunk
 from .mesh import Mesh, check_tracks_split, map_on_devices
 
 
@@ -254,7 +255,7 @@ def stft_reduce_sharded(samples: torch.Tensor, lengths: torch.Tensor, frame_size
         # ext frame k starts at ext sample k*hop; central frames are
         # k in [lead, lead + fpb), global frame index j*fpb + k - lead
         dev, bl = ext.device, ext.shape[0]
-        basis = fused_windowed_basis(frame_size, hann_window(frame_size, dev), keep_bins, bf16)
+        basis = tables.on(dev, hann_basis, frame_size, keep_bins, bf16)
 
         def spectra(k0: int, n: int):
             """Masked spectra of ext frames [k0, k0 + n) and their global

@@ -18,7 +18,6 @@ to each block on its own device.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict, Tuple
 
@@ -26,9 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import tracing
 from ..config import NormalizationMethod
-from ..ops import masked
+from ..ops import masked, tables
 
 EPSILON = 1e-10
 LUFS_GATE_THRESHOLD = -70.0
@@ -37,7 +35,6 @@ LUFS_BLOCK_DURATION_MS = 400.0
 KWEIGHT_FIR_TAPS = 256
 
 
-@functools.lru_cache(maxsize=8)
 def k_weighting_coeffs(sample_rate: float) -> Tuple[float, float, float, float, float]:
     """Normalized biquad coefficients (b0, b1, b2, a1, a2) of the K-weighting
     high-pass shelving stage (normalization.rs:131-158)."""
@@ -54,7 +51,6 @@ def k_weighting_coeffs(sample_rate: float) -> Tuple[float, float, float, float, 
     return (b0 / a0, b1 / a0, b2 / a0, a1 / a0, a2 / a0)
 
 
-@functools.lru_cache(maxsize=8)
 def k_weighting_fir(sample_rate: float, n_taps: int = KWEIGHT_FIR_TAPS) -> np.ndarray:
     """Truncated impulse response of the K-weighting biquad, computed in
     float64 on the host and rounded to f32."""
@@ -71,7 +67,6 @@ def k_weighting_fir(sample_rate: float, n_taps: int = KWEIGHT_FIR_TAPS) -> np.nd
     return h.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
 def _k_weighting_toeplitz(sample_rate: float, blk: int = KWEIGHT_FIR_TAPS) -> np.ndarray:
     """Banded Toeplitz matrix ``H [2*blk, blk]`` with
     ``H[p, j] = h[blk + j - p]`` where in range, so that
@@ -94,8 +89,8 @@ def k_weighting_filter(samples: torch.Tensor, sample_rate: float) -> torch.Tenso
     blk = KWEIGHT_FIR_TAPS
     nb = -(-t // blk)
     xb = F.pad(samples, (0, nb * blk - t)).reshape(b, nb, blk)
-    with tracing.host_read("loudness.k_weighting"):
-        H = torch.as_tensor(_k_weighting_toeplitz(sample_rate, blk), device=samples.device)
+    H = tables.on(samples.device, _k_weighting_toeplitz, sample_rate, blk,
+                  site="loudness.k_weighting")
     prev = F.pad(xb[:, :-1], (0, 0, 1, 0))
     y = torch.matmul(xb, H[blk:]) + torch.matmul(prev, H[:blk])
     return y.reshape(b, nb * blk)[:, :t]

@@ -135,7 +135,8 @@ def span(name: str, *, device=None, call: bool = False, **attrs):
 
 def host_read(site: str):
     """A ``host_read`` span (attribute ``site``) around one point where the
-    host waits for the card, and one more ``host_reads`` count."""
+    host waits for the card, and one more ``host_reads`` count. A constant
+    table's upload (``ops/tables.py``) is one, once a device."""
     count("host_reads")
     if not _on():
         return _OFF

@@ -3,7 +3,7 @@ kernel ``csrc/hpcp_bisect.cu`` and its plain version).
 
 On the CPU: the host-side band against the peak mask it replaces,
 ``frames_to_hpcp`` bit-equal to the benchmark's frozen copy of the port
-before the kernel (``portbench/reference``), the per-device table cache, the
+before the kernel (``portbench/reference``), its tables' cache, the
 kernel's refusals, and the readers of the HPCP layer's metrics. On the card
 (``cuda`` marker; they skip without one): the kernel against the plain
 version within 1e-6 on random rows, ties at the K-th peak, rows with fewer
@@ -23,7 +23,7 @@ from portbench.reference.plain.features.chroma import extractor as plain_chx
 from stratum_dsp_tpu_torch import testing, tracing
 from stratum_dsp_tpu_torch.features.chroma import extractor as chx
 from stratum_dsp_tpu_torch.features.key import pipeline as key_pipeline
-from stratum_dsp_tpu_torch.ops import hpcp
+from stratum_dsp_tpu_torch.ops import hpcp, tables
 
 torch.set_num_threads(2)
 
@@ -102,28 +102,41 @@ def test_cpu_other_power_equals_the_port_before_the_kernel():
     assert torch.equal(got, want)
 
 
-def test_the_table_cache_builds_once_a_device_and_parameters():
-    params = (SR, FFT, KEEP, 0.4375, 0.0, 4, 0.6, 100.0, 5000.0)  # a sigma of its own
+# the functions that make the HPCP's tables, each at parameters of its own (a
+# sigma, a band) so that no other test has cached them: (make, parameters, site)
+CACHED_TABLES = {
+    "harmonic matrix": (chx.hpcp_harmonic_matrix, (SR, FFT, KEEP, 0.4375, 0.0, 4, 0.6, 100.0,
+                                                   5000.0), "chroma.hpcp_matrix"),
+    "sort's peak band": (chx.peak_band_mask, (4097, KEEP, SR, FFT, 110.0, 4900.0),
+                         "chroma.peak_band"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CACHED_TABLES))
+def test_the_table_cache_builds_once_a_device_and_parameters(name):
+    make, params, site = CACHED_TABLES[name]
     port.reset_launch_counts()
-    first = chx.hpcp_harmonic_matrix_on("cpu", *params)
+    first = tables.on("cpu", make, *params, site=site)
     assert tracing.counters().get("host_reads") == 1
-    assert chx.hpcp_harmonic_matrix_on(torch.device("cpu"), *params) is first
+    assert tables.on(torch.device("cpu"), make, *params, site=site) is first
+    assert tables.on(None, make, *params, site=site) is first
     assert tracing.counters().get("host_reads") == 1
-    np.testing.assert_array_equal(first.numpy(), chx.hpcp_harmonic_matrix(*params))
+    np.testing.assert_array_equal(first.numpy(), make(*params))
 
 
 def test_the_bisection_waits_for_no_upload_a_chunk():
-    """The band is two ints and the table is cached: of the sites the HPCP
-    read from before, only the sort's band is left."""
+    """The band is two ints and the tables are cached: once each branch has
+    run, neither the bisection nor the sort copies anything to the device."""
     spec = _spectra()
-    chx.frames_to_hpcp(spec, *HPCP_ARGS, 0.0, *HPCP_REST)  # the table's first copy
+    for approx in (True, False):  # the tables' first copies
+        chx.frames_to_hpcp(spec, *HPCP_ARGS, 0.0, *HPCP_REST, approx_peaks=approx)
     port.reset_launch_counts()
     with tracing.recording():
         for _ in range(3):
             chx.frames_to_hpcp(spec, *HPCP_ARGS, 0.0, *HPCP_REST)
         chx.frames_to_hpcp(spec, *HPCP_ARGS, 0.0, *HPCP_REST, approx_peaks=False)
-    sites = [r["attrs"]["site"] for r in tracing.spans() if r["name"] == "host_read"]
-    assert sites == ["chroma.peak_band"]
+    assert [r for r in tracing.spans() if r["name"] == "host_read"] == []
+    assert "host_reads" not in tracing.counters()
     assert hpcp.hpcp_bisect.launches == 0 and "hpcp_kernel" not in tracing.counters()
 
 
