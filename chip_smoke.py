@@ -86,6 +86,15 @@ Between them, the opt-in paths:
   than K, no peaks, bf16, whitening, per-track matrices, the bass band and a
   band past 2048 bins, each within 1e-6 of the plain version; its launches a
   key STFT chunk: one, two under the bass blend, none under exact peaks;
+* the direct windowed DFT's magnitudes (``ops/stft.py:stft_magnitude``, a
+  kernel with no TPU counterpart) after the HPCP: the base BPM chunk
+  ``[40, 256, 2048]`` at hop 512 and the escalation's ``[12, 256, 2048]`` at
+  hop 256, timed beside the plain version (unfold, bf16 rounding, cuBLAS's
+  f32 product, magnitude and mask) and the bound, and a halo, rows ending
+  inside the chunk, a chunk past every row's end and the 2-D mesh's key shape
+  (8192 samples, 931 bins), each held to an f64 DFT of the same bf16-rounded
+  operands: at most 4 times the plain version's error plus 1e-6 of the
+  frame's norm;
 
 * kernel A at the log-frequency shape (every bin kept: ``keep = 4097``,
   ``KP = 4224``) at B = 40 and at ragged batches, bit for bit, and kernel D's
@@ -921,6 +930,67 @@ def main() -> int:
           f"within 1e-6 of the plain version on {', '.join(cases_h)} ({errs_h}); launches "
           f"{launched_h} over key STFT chunks {n_chunks_h}")
 
+    # the direct windowed DFT's magnitudes (ops/stft.py:stft_magnitude; the
+    # JAX package leaves the product to XLA) at the base BPM chunk and the
+    # escalation's, each against the plain version and an f64 DFT of the same
+    # bf16-rounded operands; then masked and ragged chunks and the 2-D mesh's
+    # key shape
+    from stratum_dsp_tpu_torch.ops import stft as stft_ops
+    from stratum_dsp_tpu_torch.ops import tables as stft_tables
+
+    gen_s = torch.Generator(device=dev).manual_seed(18)
+
+    def stft_case(b, n, hop, keep, frames, frame0=0, counts=None):
+        basis = stft_tables.on(dev, stft_ops.hann_basis, n, keep, True)
+        x_s = torch.randn((b, (frames - 1) * hop + n), generator=gen_s, device=dev) * 0.3
+        fc = torch.full((b,), frame0 + frames + 1, dtype=torch.int64, device=dev) \
+            if counts is None else counts
+        args = (x_s, frames, hop, basis, frame0, fc)
+        got_s = stft_ops.stft_magnitude(*args)
+        plain_s = stft_ops.stft_magnitude_plain(*args)
+        fr = stft_ops.extract_frames(x_s, frames, n, hop).to(torch.bfloat16).double()
+        ri = fr @ basis.double()
+        k = basis.shape[1] // 2
+        exact = torch.sqrt(ri[..., :k] ** 2 + ri[..., k:] ** 2)
+        fidx = frame0 + torch.arange(frames, device=dev)
+        exact = torch.where(((fidx >= 0)[None] & (fidx[None] < fc[:, None]))[..., None], exact,
+                            0.0)
+        err_k = (got_s.double() - exact).abs().amax(dim=-1)
+        err_p = (plain_s.double() - exact).abs().amax(dim=-1)
+        slack = err_k - 4 * err_p - 1e-6 * fr.norm(dim=-1) * stft_ops.hann_window(n, dev).norm()
+        torch.cuda.synchronize()
+        return float(slack.max()), float((got_s - plain_s).abs().max()), args
+
+    main_s = {"base": (B_REAL, 2048, 512, None, 256), "escalation": (12, 2048, 256, None, 256)}
+    ms_s, plain_ms_s, bound_s, err_s = {}, {}, {}, 0.0
+    for name, (b, n, hop, keep, frames) in main_s.items():
+        slack, diff, args = stft_case(b, n, hop, keep, frames)
+        if slack > 0:
+            fail(f"stft_magnitude {name}: off the f64 DFT by more than its bound ({slack:.3g})")
+        err_s = max(err_s, diff)
+        ms_s[name] = cuda_time_ms(lambda a=args: stft_ops.stft_magnitude(*a), 50)
+        plain_ms_s[name] = cuda_time_ms(lambda a=args: stft_ops.stft_magnitude_plain(*a), 10)
+        bound_s[name] = stft_ops.stft_magnitude_bound_ms(b, frames, n, hop, 1025)
+        phase("kernel stft_magnitude",
+              f"{name} [{b}, {frames}, {n}] hop {hop}: {diff:.3g} from the plain version; kernel "
+              f"{ms_s[name]:.4f} ms, plain {plain_ms_s[name]:.4f} ms, "
+              f"{bound_text(bound_s[name], ms_s[name])}")
+    ragged = torch.tensor([5, 300, 40, 0, 260, 1, 255, 128, 77, 3, 200, 259], device=dev)
+    cases_s = {"halo, ragged rows": dict(b=12, n=2048, hop=256, keep=None, frames=260, frame0=-2,
+                                        counts=ragged),
+               "past every row's end": dict(b=16, n=2048, hop=512, keep=None, frames=256,
+                                            frame0=15000, counts=torch.full(
+                                                (16,), 14000, dtype=torch.int64, device=dev)),
+               "2-D mesh key": dict(b=B_REAL, n=8192, hop=512, keep=931, frames=24, frame0=-4)}
+    for name, kw in cases_s.items():
+        slack, diff, _ = stft_case(**kw)
+        if slack > 0:
+            fail(f"stft_magnitude {name}: off the f64 DFT by more than its bound ({slack:.3g})")
+        err_s = max(err_s, diff)
+    phase("kernel stft_magnitude",
+          f"within its bound of the f64 DFT on {', '.join(cases_s)}; "
+          f"largest difference from the plain version {err_s:.3g}")
+
     # 7. fixture batches, CPU (plain versions) vs card (kernels): the slice
     # batch under SLICE_CONFIG, and under the default config a batch that
     # takes every branch of the escalation
@@ -977,10 +1047,14 @@ def main() -> int:
         chunk when a track escalates), one over the whole percussive
         spectrogram where the percussive fallback is on, a windowed median
         for the chroma smoothing (and two an HPSS iteration), and an HPCP a
-        chunk of the extraction pass where the bisection picks the peaks."""
-        d = n_chunks(512) + (n_chunks(256) if escalated and cfg_multires else 0) + whole_track_d
+        chunk of the extraction pass where the bisection picks the peaks; a
+        direct DFT a BPM chunk and hop-256 chunk, and a chunk of the HPSS
+        spectrogram where the percussive fallback is on."""
+        esc = n_chunks(256) if escalated and cfg_multires else 0
+        d = n_chunks(512) + esc + whole_track_d
         return {"polyphase_stage2": 81 * key_passes, "downbeat_mask": 1, "viterbi_decode": 1,
-                "fused_novelty_features": d, "window_median": medians, "hpcp_bisect": hpcp}
+                "fused_novelty_features": d, "window_median": medians, "hpcp_bisect": hpcp,
+                "stft_magnitude": n_chunks(512) * (2 if whole_track_d else 1) + esc}
 
     def gates_for(res, seeds, core, launches, **changes):
         res = {k: v.cpu().numpy() for k, v in res.items()}
@@ -1269,8 +1343,8 @@ def main() -> int:
         """One kernel's line: times measured above, the bound computed from
         this run's shapes and data, launches from the adversarial batch (and
         from the file path's batch). No single PyTorch call computes any of
-        the six functions, so there is no library time; the windowed median
-        and the HPCP replace no TPU kernel."""
+        the seven functions, so there is no library time; the windowed
+        median, the HPCP and the DFT's magnitudes replace no TPU kernel."""
         return {"name": name, "route": "cuda",
                 "source": f"stratum_dsp_tpu_torch/csrc/{source}",
                 "replaces": replaces and f"stratum_dsp_tpu/ops/{replaces}",
@@ -1296,7 +1370,12 @@ def main() -> int:
               bound_m["time"]),
         entry("hpcp_bisect", "hpcp_bisect.cu", None, err_h, ms_h[main_h[0]],
               plain_ms_h[main_h[0]], bound_h[main_h[0]]),
+        entry("stft_magnitude", "stft_magnitude.cu", None, err_s, ms_s["base"],
+              plain_ms_s["base"], bound_s["base"]),
     ]
+    kernels[6].update(escalation_ms=ms_s["escalation"],
+                      escalation_plain_ms=plain_ms_s["escalation"],
+                      escalation_bound_ms=bound_s["escalation"]["bound_ms"])
     kernels[5].update(single_ms=ms_h[main_h[1]], single_plain_ms=plain_ms_h[main_h[1]],
                       single_bound_ms=bound_h[main_h[1]]["bound_ms"],
                       launches_chunks=launched_h)

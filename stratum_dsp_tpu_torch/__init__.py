@@ -51,10 +51,11 @@ from .ops.hpcp import hpcp_bisect
 from .ops.masked import window_median
 from .ops.novelty import fused_novelty_features
 from .ops.polyphase import polyphase_stage2
+from .ops.stft import stft_magnitude
 from .ops.viterbi import viterbi_decode
 
 KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_features, window_median,
-           hpcp_bisect)
+           hpcp_bisect, stft_magnitude)
 
 
 def reset_launch_counts() -> None:

@@ -28,10 +28,12 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
 )
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory, and
-# f32 outside the tensor cores. Every kernel's bound is stated against them.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory, f32
+# outside the tensor cores, and dense bf16 on them. Every kernel's bound is
+# stated against them.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
+H100_BF16_OPS_PER_S = 989e12
 
 _vp, _int, _ll, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> (argtypes, restype)
@@ -48,6 +50,8 @@ _SIGNATURES = {
     "stratum_window_median": ([_vp, _vp, _vp] + [_int] * 5 + [_vp], _int),
     "stratum_hpcp_bisect": ([_vp, _ll, _int, _vp, _ll, _int, _vp, _ll, _int, _vp]
                             + [_int] * 5 + [_f32, _int, _vp], _int),
+    "stratum_stft_magnitude": ([_vp, _ll, _ll, _vp, _vp, _ll, _vp] + [_int] * 5 + [_vp], _int),
+    "stratum_stft_magnitude_fits": ([_int, _int], _int),
 }
 
 
@@ -120,12 +124,13 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-def roofline(n_bytes: int, n_ops: int) -> dict:
+def roofline(n_bytes: int, n_ops: int, ops_per_s: float = H100_F32_OPS_PER_S) -> dict:
     """The least time an H100 could take to move ``n_bytes`` and do ``n_ops``
-    f32 operations outside the tensor cores: ``bound_ms`` is the larger of
-    the two times and ``bound_by`` names it."""
+    operations at ``ops_per_s`` (f32 outside the tensor cores unless
+    stated): ``bound_ms`` is the larger of the two times and ``bound_by``
+    names it."""
     bytes_ms = 1e3 * n_bytes / H100_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / H100_F32_OPS_PER_S
+    ops_ms = 1e3 * n_ops / ops_per_s
     return {"bytes": int(n_bytes), "operations": int(n_ops), "bytes_ms": bytes_ms,
             "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}

@@ -15,7 +15,9 @@ reference:
 
 bf16 matmuls follow the reference's rounding points: operands rounded to
 bf16, products accumulated in f32. PyTorch's bf16 ``matmul`` returns bf16, so
-the rounded operands are upcast and multiplied in f32.
+the plain version upcasts the rounded operands and multiplies them in f32; on
+a card the direct form under a bf16 basis is one launch a chunk of the
+tensor-core kernel ``csrc/stft_magnitude.cu`` (``stft_magnitude``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import tables
+from .. import tracing
+from . import cuda_build, tables
 from .polyphase import polyphase_stage2
 
 
@@ -91,6 +94,102 @@ def stft_magnitude_chunk(frames: torch.Tensor, basis: torch.Tensor) -> torch.Ten
     k = basis.shape[-1] // 2
     re, im = ri[..., :k], ri[..., k:]
     return torch.sqrt(re * re + im * im)
+
+
+def stft_magnitude_plain(region: torch.Tensor, n_frames: int, hop: int, basis: torch.Tensor,
+                         frame0: int, frame_counts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``stft_magnitude``: the frames unfolded, one
+    matmul (``bf16_matmul_f32``), the magnitude and the frame mask."""
+    spec = stft_magnitude_chunk(extract_frames(region, n_frames, basis.shape[0], hop), basis)
+    fidx = frame0 + torch.arange(n_frames, device=region.device)
+    fvalid = (fidx[None, :] >= 0) & (fidx[None, :] < frame_counts[:, None])
+    return torch.where(fvalid[:, :, None], spec, 0.0)
+
+
+MMA_TILE_COLS, MMA_SLAB_K = 256, 32  # the kernel's column tile and k-slab
+
+
+def mma_swizzle(width: int) -> torch.Tensor:
+    """``[width, 4]``: where row r of a kernel slab keeps its 16-byte chunk c
+    (``c ^ ((r >> 1) & 3)``; the map is its own inverse)."""
+    return torch.arange(4)[None, :] ^ ((torch.arange(width)[:, None] >> 1) & 3)
+
+
+def mma_basis(n: int, keep_bins: int, device) -> torch.Tensor:
+    """``hann_basis(n, keep_bins, bf16=True)`` in the kernel's layout, made
+    through ``ops/tables.py``: the columns interleaved (column ``2 j`` bin j's
+    cos column, ``2 j + 1`` its sin column) and zero-padded to a multiple of
+    8, stored flat in the order the kernel streams them: each whole tile of
+    256 columns as ``[n / 32, 256, 32]`` (a slab of 32 k a step), then the
+    ragged last tile's columns as ``[n / 32, rows, 32]``, each row's four
+    chunks of 8 k placed by ``mma_swizzle``."""
+    basis = hann_basis(n, keep_bins, True, device)
+    cols = torch.stack([basis[:, :keep_bins], basis[:, keep_bins:]], dim=2).reshape(n, -1).t()
+    cols = F.pad(cols, (0, 0, 0, -(-2 * keep_bins // 8) * 8 - 2 * keep_bins))
+    parts = []
+    for tile in cols.split(MMA_TILE_COLS):
+        rows = tile.shape[0]
+        slabs = tile.reshape(rows, n // MMA_SLAB_K, 4, 8).transpose(0, 1)
+        r = torch.arange(rows, device=cols.device)[:, None]
+        parts.append(slabs[:, r, mma_swizzle(rows).to(cols.device)].reshape(-1))
+    return torch.cat(parts)
+
+
+def stft_magnitude_bound_ms(rows: int, frames: int, n: int, hop: int, keep_bins: int) -> dict:
+    """The least time an H100 could take for one call on ``rows`` rows of
+    ``frames`` frames of ``n`` samples at ``hop``.
+
+    Bytes: each row's samples read once (f32), the ``[rows, frames, keep]``
+    f32 magnitudes written once, over 3.35 TB/s. Operations: a multiply and
+    an add a sample for each of the ``2 keep`` basis columns, over the 989
+    TFLOP/s of dense bf16 on the tensor cores."""
+    n_bytes = 4 * rows * ((frames - 1) * hop + n) + 4 * rows * frames * keep_bins
+    n_ops = 2 * rows * frames * n * 2 * keep_bins
+    return cuda_build.roofline(n_bytes, n_ops, ops_per_s=cuda_build.H100_BF16_OPS_PER_S)
+
+
+def stft_magnitude(region: torch.Tensor, n_frames: int, hop: int, basis: torch.Tensor,
+                   frame0: int, frame_counts: torch.Tensor) -> torch.Tensor:
+    """Windowed DFT magnitudes ``[B, n_frames, K]`` f32 of the frames
+    ``region[:, f * hop : f * hop + n]`` of ``region [B, L]`` against
+    ``basis [n, 2K]`` (``hann_basis``), zero where ``frame0 + f`` lies outside
+    ``[0, frame_counts[b])``. Counts one ``stft_chunks``.
+
+    A CPU tensor or an f32 basis takes the plain version; a CUDA tensor under
+    a bf16 basis launches the kernel (``csrc/stft_magnitude.cu``, one launch,
+    counted as ``stft_kernel``) or raises."""
+    tracing.count("stft_chunks")
+    if region.device.type == "cpu" or basis.dtype != torch.bfloat16:
+        return stft_magnitude_plain(region, n_frames, hop, basis, frame0, frame_counts)
+    if region.device.type != "cuda":
+        raise ValueError(f"stft_magnitude: unsupported device {region.device}")
+    n, keep = basis.shape[0], basis.shape[1] // 2
+    b, avail = region.shape
+    if region.dtype != torch.float32 or region.stride(1) != 1:
+        raise ValueError(f"stft_magnitude kernel takes f32 rows of unit stride, got "
+                         f"{region.dtype} strides {region.stride()}")
+    if n % 32 or hop % 16 or avail < (n_frames - 1) * hop + n or n_frames < 1:
+        raise ValueError(f"stft_magnitude kernel: frames of {n} at hop {hop} (n a multiple of "
+                         f"32, hop of 16), {n_frames} frames in {avail} samples")
+    lib = cuda_build.library()
+    if not lib.stratum_stft_magnitude_fits(n, hop):
+        raise ValueError(f"stft_magnitude kernel: 32 frames of {n} at hop {hop} do not fit "
+                         "in shared memory")
+    table = tables.on(region.device, mma_basis, n, keep)
+    counts = frame_counts.to(device=region.device, dtype=torch.int64).contiguous()
+    out = torch.empty((b, n_frames, keep), dtype=torch.float32, device=region.device)
+    with torch.cuda.device(region.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.stratum_stft_magnitude(
+            region.data_ptr(), region.stride(0), avail, table.data_ptr(), counts.data_ptr(),
+            int(frame0), out.data_ptr(), b, n_frames, n, hop, keep, stream)
+    cuda_build.check(rc, "stft_magnitude")
+    tracing.count_launch(stft_magnitude)
+    tracing.count("stft_kernel")
+    return out
+
+
+stft_magnitude.launches = 0
 
 
 def _poly_block_basis(n: int, hop: int, kp: int, bf16: bool, device) -> torch.Tensor:
@@ -171,14 +270,14 @@ def stft_reduce(samples: torch.Tensor, lengths: torch.Tensor, frame_size: int, h
     chunks = []
     for c in range(n_chunks):
         s0 = c * chunk_frames
-        if poly:
-            spec = polyphase_chunk_magnitudes(samples, s0, ext, frame_size, hop, kbins)
-        else:
-            region = samples[:, s0 * hop:s0 * hop + (ext - 1) * hop + frame_size]
-            spec = stft_magnitude_chunk(extract_frames(region, ext, frame_size, hop), basis)
         fidx = s0 - halo + arange_ext
         fvalid = (fidx[None, :] >= 0) & (fidx[None, :] < frame_counts[:, None])
-        spec = torch.where(fvalid[:, :, None], spec, 0.0)
+        if poly:
+            spec = polyphase_chunk_magnitudes(samples, s0, ext, frame_size, hop, kbins)
+            spec = torch.where(fvalid[:, :, None], spec, 0.0)
+        else:
+            region = samples[:, s0 * hop:s0 * hop + (ext - 1) * hop + frame_size]
+            spec = stft_magnitude(region, ext, hop, basis, s0 - halo, frame_counts)
         outs, carry = reducer(spec, fidx, fvalid, carry)
         chunks.append(outs)
     outs = {k: torch.cat([o[k] for o in chunks], dim=1) for k in chunks[0]}

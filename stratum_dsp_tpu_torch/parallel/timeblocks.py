@@ -50,7 +50,7 @@ from ..config import AnalysisConfig
 from ..features.period import novelty as nov
 from ..ops import tables
 from ..ops.masked import scan_sum, sqrt_f32
-from ..ops.stft import extract_frames, hann_basis, stft_magnitude_chunk
+from ..ops.stft import hann_basis, stft_magnitude
 from .mesh import Mesh, check_tracks_split, map_on_devices
 
 
@@ -256,16 +256,16 @@ def stft_reduce_sharded(samples: torch.Tensor, lengths: torch.Tensor, frame_size
         # k in [lead, lead + fpb), global frame index j*fpb + k - lead
         dev, bl = ext.device, ext.shape[0]
         basis = tables.on(dev, hann_basis, frame_size, keep_bins, bf16)
+        fc = fc.clamp_max(nf_total)
 
         def spectra(k0: int, n: int):
             """Masked spectra of ext frames [k0, k0 + n) and their global
             indices and validity."""
             region = ext[:, k0 * hop:k0 * hop + (n - 1) * hop + frame_size]
-            spec = stft_magnitude_chunk(extract_frames(region, n, frame_size, hop), basis)
-            fidx = j * fpb + k0 - lead + torch.arange(n, device=dev)
-            fvalid = (fidx >= 0) & (fidx < nf_total)
-            fvalid = fvalid[None, :] & (fidx[None, :] < fc[:, None])
-            return torch.where(fvalid[:, :, None], spec, 0.0), fidx, fvalid
+            f0 = j * fpb + k0 - lead
+            fidx = f0 + torch.arange(n, device=dev)
+            fvalid = (fidx[None, :] >= 0) & (fidx[None, :] < fc[:, None])
+            return stft_magnitude(region, n, hop, basis, f0, fc), fidx, fvalid
 
         if prev_frames > 0:
             # the block's carry: the real previous frames' spectra (zero at
