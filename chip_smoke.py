@@ -105,8 +105,9 @@ Between them, the opt-in paths:
   (``measure.OPT_IN_CONFIGS``: HPSS onsets + percussive fallback + LOUDNESS
   normalization; tuning compensation + exact HPCP peaks; log-frequency
   chroma), each a warm-up and timed batches held to the default gates and to
-  the launch counts its config implies, with tracks/s, peak device memory and
-  stage times (after phase 10);
+  the launch counts its config implies (log-frequency also to 4097 key STFT
+  bins a pass, ``key_stft_bins``, and A's 81 launches), with tracks/s, peak
+  device memory and stage times (after phase 10);
 * a fixture batch on the CPU and on the card under configs that together
   switch on every opt-in branch (before phase 11).
 
@@ -1133,10 +1134,16 @@ def main() -> int:
     for name, spec_cfg in measure.OPT_IN_CONFIGS.items():
         cfg_o = measure.opt_in_config(name)
         run_o = measure.timed_batches(adversarial, lengths, cfg_o, dev, 2)
+        counts_o = port.tracing.counters()  # the last timed batch's
         gates, res, bpm = gates_for(run_o["out"], measure.ADVERSARIAL_BPMS, core,
                                     run_o["launches"], key_passes=spec_cfg["key_passes"],
                                     whole_track_d=spec_cfg["whole_track_d"],
                                     medians=spec_cfg["medians"], hpcp=spec_cfg["hpcp"])
+        if name == "log-frequency":
+            # every bin of the 8192-point key STFT kept, in each of A's 81 chunks
+            gates["key STFT bins a pass 4097"] = counts_o.get("key_stft_bins", 0) == (
+                measure.STAGE2_WIDE_SHAPE[2] * counts_o.get("key_stft_passes", -1))
+            gates["kernel A 81 launches"] = run_o["launches"]["polyphase_stage2"] == 81
         if name == "hpss":
             gates["percussive fallback triggered"] = bool(res["percussive_triggered"].any())
             stages_o = measure.hpss_stage_times(adversarial, lengths, cfg_o, dev)
@@ -1153,6 +1160,8 @@ def main() -> int:
               f"{spec_cfg['overrides']}: {B_REAL} x {SECONDS_REAL:.0f} s, adversarial mix, walls "
               f"{[round(w, 4) for w in run_o['walls_s']]} s; {rate:.2f} tracks/s on {card}; peak "
               f"device memory {run_o['peak_memory_gb']:.2f} GB; launches {run_o['launches']}; "
+              f"key STFT passes {counts_o.get('key_stft_passes')}, bins "
+              f"{counts_o.get('key_stft_bins')}; "
               f"percussive triggered {int(res['percussive_triggered'].sum())}, used "
               f"{int(res['percussive_used'].sum())}; stage ms: {stage_text}; gates {gates}")
         if not all(gates.values()):

@@ -84,13 +84,14 @@ def _stream_key_stft(samples, lengths, cfg: AnalysisConfig, sample_rate: int, re
     symmetric Hann, as the JAX package's time-sharded path computes it),
     else by ``stft_reduce`` (the polyphase form under bf16).
 
-    Counts one ``key_stft_passes`` a call and one ``key_stft_chunks`` a chunk
-    it streams, on the innermost open span (``key.tuning``, ``key.hpss_mask``
-    or ``key.stft``)."""
+    Counts one ``key_stft_passes`` a call, the bins the pass keeps as
+    ``key_stft_bins``, and one ``key_stft_chunks`` a chunk it streams, on the
+    innermost open span (``key.tuning``, ``key.hpss_mask`` or ``key.stft``)."""
     frame_size, hop = _key_stft_params(cfg)
     chunk = _auto_chunk(samples.shape[0], frame_size, chunk_frames)
     keep_bins = _key_keep_bins(cfg, sample_rate, frame_size)
     tracing.count("key_stft_passes")
+    tracing.count("key_stft_bins", keep_bins if keep_bins is not None else frame_size // 2 + 1)
 
     def counted(spec, fidx, fvalid, carry):
         tracing.count("key_stft_chunks")
@@ -264,10 +265,12 @@ def extract_key_features(samples, lengths, cfg: AnalysisConfig, sample_rate: int
             central = central.clamp_min(0.0) * full_m
 
         if cfg.enable_key_log_frequency:
-            logspec = torch.matmul(central.to(torch.float32), k["log_proj"])
-            ch = torch.matmul(logspec, k["fold_m"])
-            ch = torch.where(logspec.sum(dim=-1, keepdim=True) > 0, l2_normalize_zero(ch), 0.0)
-            energy = (logspec * logspec).sum(dim=-1)
+            with tracing.span("key.log_frequency"):
+                logspec = torch.matmul(central.to(torch.float32), k["log_proj"])
+                ch = torch.matmul(logspec, k["fold_m"])
+                ch = torch.where(logspec.sum(dim=-1, keepdim=True) > 0, l2_normalize_zero(ch),
+                                 0.0)
+                energy = (logspec * logspec).sum(dim=-1)
         else:
             if not cfg.enable_key_hpcp:
                 ch = chx.frames_to_chroma(central, k["proj"])
