@@ -95,6 +95,16 @@ Between them, the opt-in paths:
   (8192 samples, 931 bins), each held to an f64 DFT of the same bf16-rounded
   operands: at most 4 times the plain version's error plus 1e-6 of the
   frame's norm;
+* stage 1 of the polyphase key STFT (``ops/stft.py:poly_block_dft``, a
+  kernel with no TPU counterpart) after the direct DFT: a default key chunk
+  ``[40, 240, 512]`` against 2048 columns and the log-frequency width's
+  8448, timed beside the plain version (block slice, bf16 rounding, cuBLAS's
+  f32 product, cast) and the bound, and the hpss cell's ``[16, 512]``, a
+  single request's ``[1, 560]`` and a later chunk of unaligned rows, each
+  element within one bf16 ulp of the plain version's or, near zero, within
+  1e-6 of the block's norm times the column's, with the count of elements
+  that differ and that differ by more than one ulp; its launches in a default
+  batch: one a key STFT chunk, 81;
 
 * kernel A at the log-frequency shape (every bin kept: ``keep = 4097``,
   ``KP = 4224``) at B = 40 and at ragged batches, bit for bit, and kernel D's
@@ -434,6 +444,7 @@ def mesh_phase(port, card: str, batches: dict, lengths, dev) -> dict:
         "scales in C on the 2-D mesh": bool((clean_2d["key_idx"][32:] == 0).all()),
         "escalated on the 2-D mesh": bool(outs["2-D"]["multi_res_used"].any()),
         "A not launched on the 2-D mesh": launches["2-D"]["polyphase_stage2"] == 0,
+        "stage 1 not launched on the 2-D mesh": launches["2-D"]["poly_block_dft"] == 0,
         "D in every time block": launches["2-D"]["fused_novelty_features"] == want_d,
         "B and C once a tracks shard": launches["2-D"]["downbeat_mask"] == 1
         and launches["2-D"]["viterbi_decode"] == 1 and launches["1-D"]["downbeat_mask"] == 2,
@@ -992,6 +1003,56 @@ def main() -> int:
           f"within its bound of the f64 DFT on {', '.join(cases_s)}; "
           f"largest difference from the plain version {err_s:.3g}")
 
+    # stage 1 of the polyphase key STFT (ops/stft.py:poly_block_dft; the JAX
+    # package leaves the product to XLA) at a default key chunk and at the
+    # log-frequency width, each against the plain version: every element
+    # within one bf16 ulp of the plain one or, near zero, where another sum
+    # order moves more bits, within 1e-6 of its block's norm times its
+    # column's; then the hpss cell's and a single request's chunks and a later
+    # chunk of unaligned rows
+    gen_p = torch.Generator(device=dev).manual_seed(20)
+
+    def poly_case(b, ebp, kp, start=0, offset=0):
+        x_p = torch.randn((b, (start + ebp + 1) * 512 + offset), generator=gen_p,
+                          device=dev)[:, offset:] * 0.3
+        args = (x_p, start, ebp, 8192, 512, kp)
+        got_p = stft_ops.poly_block_dft(*args).float()
+        plain_p = stft_ops.poly_block_dft_plain(*args).float()
+        blocks = x_p[:, start * 512:(start + ebp) * 512].reshape(b, ebp, 512)
+        cols = stft_tables.on(dev, stft_ops._poly_block_basis, 8192, 512, kp, True).float()
+        d = (got_p - plain_p).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(got_p.abs(), plain_p.abs()).clamp_min(1e-30))) - 7)
+        scale = blocks.to(torch.bfloat16).float().norm(dim=-1, keepdim=True) * cols.norm(dim=0)
+        stats = {"differ": int((d > 0).sum()), "beyond_one_ulp": int((d > ulp).sum()),
+                 "out_of_bound": int(((d > ulp) & (d > 1e-6 * scale)).sum()),
+                 "elements": d.numel(), "max_abs": float(d.max())}
+        torch.cuda.synchronize()
+        return stats, args
+
+    main_p = {"default": (B_REAL, 240, 1024), "wide": (B_REAL, 240, 4224)}
+    ms_p, plain_ms_p, bound_p, stats_p = {}, {}, {}, {}
+    for name, (b, ebp, kp) in main_p.items():
+        stats_p[name], args = poly_case(b, ebp, kp)
+        ms_p[name] = cuda_time_ms(lambda a=args: stft_ops.poly_block_dft(*a), 50)
+        plain_ms_p[name] = cuda_time_ms(lambda a=args: stft_ops.poly_block_dft_plain(*a), 10)
+        bound_p[name] = stft_ops.poly_block_dft_bound_ms(b, ebp, 512, kp)
+        phase("kernel poly_block_dft",
+              f"{name} [{b}, {ebp}, 512] -> [{b}, {ebp}, {2 * kp}] bf16: {stats_p[name]} "
+              f"against the plain version; kernel {ms_p[name]:.4f} ms, plain "
+              f"{plain_ms_p[name]:.4f} ms, {bound_text(bound_p[name], ms_p[name])}")
+    cases_p = {"hpss": (16, 512, 1024), "single": (1, 560, 1024),
+               "later chunk, unaligned rows": (3, 240, 1024, 48, 1)}
+    for name, case in cases_p.items():
+        stats_p[name] = poly_case(*case)[0]
+    if any(v["out_of_bound"] for v in stats_p.values()):
+        fail(f"poly_block_dft is off its plain version beyond one ulp and 1e-6 of the norms: "
+             f"{stats_p}")
+    err_p = max(v["max_abs"] for v in stats_p.values())
+    phase("kernel poly_block_dft",
+          f"within one ulp or 1e-6 of the norms of the plain version on {', '.join(cases_p)}: "
+          f"{ {k: stats_p[k] for k in cases_p} }")
+
     # 7. fixture batches, CPU (plain versions) vs card (kernels): the slice
     # batch under SLICE_CONFIG, and under the default config a batch that
     # takes every branch of the escalation
@@ -1055,7 +1116,8 @@ def main() -> int:
         d = n_chunks(512) + esc + whole_track_d
         return {"polyphase_stage2": 81 * key_passes, "downbeat_mask": 1, "viterbi_decode": 1,
                 "fused_novelty_features": d, "window_median": medians, "hpcp_bisect": hpcp,
-                "stft_magnitude": n_chunks(512) * (2 if whole_track_d else 1) + esc}
+                "stft_magnitude": n_chunks(512) * (2 if whole_track_d else 1) + esc,
+                "poly_block_dft": 81 * key_passes}
 
     def gates_for(res, seeds, core, launches, **changes):
         res = {k: v.cpu().numpy() for k, v in res.items()}
@@ -1105,6 +1167,7 @@ def main() -> int:
         rates_by_mix[name] = float(np.median(rates))
         gates, res, bpm = gates_for(out, mix_seeds, core, launches)
         n_trig, n_used = int(res["multi_res_triggered"].sum()), int(res["multi_res_used"].sum())
+        gates["stage 1 one launch a key chunk, 81"] = launches["poly_block_dft"] == 81
         if name == "adversarial":
             gates["multi-res triggered and used"] = n_trig > 0 and n_used > 0
             main_launches = launches
@@ -1352,8 +1415,9 @@ def main() -> int:
         """One kernel's line: times measured above, the bound computed from
         this run's shapes and data, launches from the adversarial batch (and
         from the file path's batch). No single PyTorch call computes any of
-        the seven functions, so there is no library time; the windowed
-        median, the HPCP and the DFT's magnitudes replace no TPU kernel."""
+        the eight functions, so there is no library time; the windowed
+        median, the HPCP, the DFT's magnitudes and stage 1 of the key STFT
+        replace no TPU kernel."""
         return {"name": name, "route": "cuda",
                 "source": f"stratum_dsp_tpu_torch/csrc/{source}",
                 "replaces": replaces and f"stratum_dsp_tpu/ops/{replaces}",
@@ -1381,7 +1445,11 @@ def main() -> int:
               plain_ms_h[main_h[0]], bound_h[main_h[0]]),
         entry("stft_magnitude", "stft_magnitude.cu", None, err_s, ms_s["base"],
               plain_ms_s["base"], bound_s["base"]),
+        entry("poly_block_dft", "poly_block_dft.cu", None, err_p, ms_p["default"],
+              plain_ms_p["default"], bound_p["default"]),
     ]
+    kernels[7].update(wide_ms=ms_p["wide"], wide_plain_ms=plain_ms_p["wide"],
+                      wide_bound_ms=bound_p["wide"]["bound_ms"], ulps=stats_p)
     kernels[6].update(escalation_ms=ms_s["escalation"],
                       escalation_plain_ms=plain_ms_s["escalation"],
                       escalation_bound_ms=bound_s["escalation"]["bound_ms"])

@@ -51,11 +51,11 @@ from .ops.hpcp import hpcp_bisect
 from .ops.masked import window_median
 from .ops.novelty import fused_novelty_features
 from .ops.polyphase import polyphase_stage2
-from .ops.stft import stft_magnitude
+from .ops.stft import poly_block_dft, stft_magnitude
 from .ops.viterbi import viterbi_decode
 
 KERNELS = (polyphase_stage2, downbeat_mask, viterbi_decode, fused_novelty_features, window_median,
-           hpcp_bisect, stft_magnitude)
+           hpcp_bisect, stft_magnitude, poly_block_dft)
 
 
 def reset_launch_counts() -> None:

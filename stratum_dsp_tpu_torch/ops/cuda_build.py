@@ -52,6 +52,8 @@ _SIGNATURES = {
                             + [_int] * 5 + [_f32, _int, _vp], _int),
     "stratum_stft_magnitude": ([_vp, _ll, _ll, _vp, _vp, _ll, _vp] + [_int] * 5 + [_vp], _int),
     "stratum_stft_magnitude_fits": ([_int, _int], _int),
+    "stratum_poly_block_dft": ([_vp, _ll, _vp, _vp] + [_int] * 4 + [_vp], _int),
+    "stratum_poly_block_dft_fits": ([_int], _int),
 }
 
 

@@ -9,15 +9,16 @@ reference:
 * the direct windowed DFT, one matmul of the frames against a fused
   ``[n, 2K]`` cos|sin basis with the symmetric (n-1) Hann window folded in;
 * the polyphase shared-block form for frame/hop ratios R >= 16 under the bf16
-  pipeline (the 8192/512 key STFT): one per-hop-block DFT matmul, then the
-  stage-2 kernel (``ops/polyphase.py``) that twiddles, box-sums R blocks and
-  applies the periodic-Hann 3-bin mix.
+  pipeline (the 8192/512 key STFT): one per-hop-block DFT (stage 1,
+  ``poly_block_dft``), then the stage-2 kernel (``ops/polyphase.py``) that
+  twiddles, box-sums R blocks and applies the periodic-Hann 3-bin mix.
 
 bf16 matmuls follow the reference's rounding points: operands rounded to
 bf16, products accumulated in f32. PyTorch's bf16 ``matmul`` returns bf16, so
-the plain version upcasts the rounded operands and multiplies them in f32; on
-a card the direct form under a bf16 basis is one launch a chunk of the
-tensor-core kernel ``csrc/stft_magnitude.cu`` (``stft_magnitude``).
+the plain versions upcast the rounded operands and multiply them in f32; on
+a card each is one launch a chunk of a tensor-core kernel: the direct form
+under a bf16 basis ``csrc/stft_magnitude.cu`` (``stft_magnitude``), stage 1
+under bf16 ``csrc/poly_block_dft.cu`` (``poly_block_dft``).
 """
 
 from __future__ import annotations
@@ -201,6 +202,93 @@ def _poly_block_basis(n: int, hop: int, kp: int, bf16: bool, device) -> torch.Te
     return basis.to(torch.bfloat16) if bf16 else basis
 
 
+POLY_TILE_COLS, POLY_SLAB_K = 256, 64  # stage 1's column tile and k-slab
+
+
+def poly_block_table(n: int, hop: int, kp: int, device) -> torch.Tensor:
+    """``_poly_block_basis(n, hop, kp, bf16=True)`` in stage 1's kernel
+    layout, made through ``ops/tables.py``: its ``2 kp`` columns in their own
+    order, stored flat as ``[2 kp / 256, hop / 64, 256, 64]`` (a column tile's
+    slabs of 64 k, one a step), each column r's eight chunks c of 8 k at
+    ``c ^ (r & 7)``."""
+    basis = tables.on(device, _poly_block_basis, n, hop, kp, True)
+    tiles, slabs = 2 * kp // POLY_TILE_COLS, hop // POLY_SLAB_K
+    cols = basis.t().reshape(tiles, POLY_TILE_COLS, slabs, 8, 8).transpose(1, 2)
+    r = torch.arange(POLY_TILE_COLS, device=basis.device)[:, None]
+    swizzle = torch.arange(8, device=basis.device)[None, :] ^ (r & 7)  # its own inverse
+    return cols[:, :, r, swizzle].contiguous().reshape(-1)
+
+
+def poly_block_dft_bound_ms(rows: int, ebp: int, hop: int, kp: int) -> dict:
+    """The least time an H100 could take for one call of ``poly_block_dft``
+    on ``rows`` rows of ``ebp`` blocks.
+
+    Bytes: the blocks' f32 samples read once and the bf16 ``[rows, ebp, 2 kp]``
+    written once, over 3.35 TB/s. Operations: a multiply and an add a sample
+    for each of the ``2 kp`` columns, over the 989 TFLOP/s of dense bf16 on
+    the tensor cores."""
+    n_bytes = 4 * rows * ebp * hop + 2 * rows * ebp * 2 * kp
+    n_ops = 2 * rows * ebp * hop * 2 * kp
+    return cuda_build.roofline(n_bytes, n_ops, ops_per_s=cuda_build.H100_BF16_OPS_PER_S)
+
+
+def poly_block_dft_plain(samples: torch.Tensor, start: int, ebp: int, n: int, hop: int, kp: int,
+                         bf16: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of ``poly_block_dft``: the blocks sliced, one
+    matmul (``bf16_matmul_f32``) and, under bf16, the cast."""
+    blocks = samples[:, start * hop:(start + ebp) * hop].reshape(samples.shape[0], ebp, hop)
+    bd = bf16_matmul_f32(blocks, tables.on(samples.device, _poly_block_basis, n, hop, kp, bf16))
+    return bd.to(torch.bfloat16) if bf16 else bd
+
+
+def check_poly_block_input(samples: torch.Tensor, start: int, ebp: int, hop: int,
+                           kp: int) -> None:
+    """Raise ``ValueError`` for input stage 1's kernel does not take."""
+    if samples.dtype != torch.float32 or samples.dim() != 2 or samples.stride(1) != 1:
+        raise ValueError(f"poly_block_dft kernel takes f32 rows of unit stride, got "
+                         f"{samples.dtype} {tuple(samples.shape)} strides {samples.stride()}")
+    if (hop % POLY_SLAB_K or kp % (POLY_TILE_COLS // 2) or start < 0 or ebp < 1
+            or (start + ebp) * hop > samples.shape[1]):
+        raise ValueError(f"poly_block_dft kernel: {ebp} blocks of {hop} (a multiple of "
+                         f"{POLY_SLAB_K}) from block {start} in {samples.shape[1]} samples, "
+                         f"kp {kp} (a multiple of {POLY_TILE_COLS // 2})")
+
+
+def poly_block_dft(samples: torch.Tensor, start: int, ebp: int, n: int, hop: int, kp: int,
+                   bf16: bool = True) -> torch.Tensor:
+    """Stage 1 of the polyphase STFT: the DFT on the ``n``-point grid of
+    each of the ``ebp`` hop blocks from block ``start`` of ``samples [B, T]``,
+    ``[B, ebp, 2 kp]`` (re | im of bins ``< kp``; bf16 under ``bf16``, else
+    f32), stage 2's input.
+
+    A CPU tensor or the f32 form takes the plain version; a CUDA tensor under
+    bf16 launches the kernel (``csrc/poly_block_dft.cu``, one launch, counted
+    as ``poly_block_dft``) or raises."""
+    if samples.device.type == "cpu" or not bf16:
+        return poly_block_dft_plain(samples, start, ebp, n, hop, kp, bf16)
+    if samples.device.type != "cuda":
+        raise ValueError(f"poly_block_dft: unsupported device {samples.device}")
+    check_poly_block_input(samples, start, ebp, hop, kp)
+    lib = cuda_build.library()
+    if not lib.stratum_poly_block_dft_fits(hop):
+        raise ValueError(f"poly_block_dft kernel: 32 blocks of {hop} do not fit in shared memory")
+    table = tables.on(samples.device, poly_block_table, n, hop, kp)
+    out = torch.empty((samples.shape[0], ebp, 2 * kp), dtype=torch.bfloat16,
+                      device=samples.device)
+    with torch.cuda.device(samples.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.stratum_poly_block_dft(samples[:, start * hop:].data_ptr(), samples.stride(0),
+                                        table.data_ptr(), out.data_ptr(), samples.shape[0], ebp,
+                                        hop, kp, stream)
+    cuda_build.check(rc, "poly_block_dft")
+    tracing.count_launch(poly_block_dft)
+    tracing.count("poly_block_dft")
+    return out
+
+
+poly_block_dft.launches = 0
+
+
 def poly_num_blocks(ext: int, frame_size: int, hop: int) -> int:
     """Blocks a polyphase chunk of ``ext`` frames consumes, rounded up to R."""
     r = frame_size // hop
@@ -210,16 +298,14 @@ def poly_num_blocks(ext: int, frame_size: int, hop: int) -> int:
 def polyphase_chunk_magnitudes(samples, start: int, ext: int, frame_size: int, hop: int,
                                keep_bins: int, bf16: bool = True) -> torch.Tensor:
     """Periodic-Hann STFT magnitudes ``[B, ext, keep_bins]`` for frames
-    ``[start, start+ext)``; ``start`` must be a multiple of R. Stage 1 is one
-    per-block DFT matmul; stage 2 is the kernel of ``ops/polyphase.py``."""
-    b = samples.shape[0]
-    r = frame_size // hop
+    ``[start, start+ext)``; ``start`` must be a multiple of R. Stage 1 is
+    ``poly_block_dft``; stage 2 is the kernel of ``ops/polyphase.py``. Counts
+    one ``poly_chunks``."""
+    tracing.count("poly_chunks")
     kp = -(-(keep_bins + 1) // 128) * 128  # bin keep_bins feeds the k+1 mix
     ebp = poly_num_blocks(ext, frame_size, hop)
-    blocks = samples[:, start * hop:(start + ebp) * hop].reshape(b, ebp, hop)
-    basis = tables.on(samples.device, _poly_block_basis, frame_size, hop, kp, bf16)
-    bd = bf16_matmul_f32(blocks, basis)
-    return polyphase_stage2(bd.to(torch.bfloat16) if bf16 else bd, r, ext, keep_bins)
+    bd = poly_block_dft(samples, start, ebp, frame_size, hop, kp, bf16)
+    return polyphase_stage2(bd, frame_size // hop, ext, keep_bins)
 
 
 def use_polyphase(frame_size: int, hop: int, bf16: bool, keep_bins=None) -> bool:
