@@ -20,7 +20,10 @@ one line each:
    counts drawn from the whole row, and those of 180 s tracks; C: emissions
    that die out early, and emissions that keep every frame alive) beside an
    empty launch of its grid, the floor it can approach; C's backtrack scan is
-   also held to the plain backtrack on random backpointers;
+   also held to the plain backtrack on random backpointers; B and C are also
+   held exactly to their plain versions past shared memory, at a batch of
+   whole two-hour mixes (``[8, 115200]`` walk slots, ``[8, 36001]`` beat
+   slots: their long paths), with times, bounds and empty launches;
 7. fixture batches through the port on the CPU (``device="cpu"``, plain
    versions) and on the card (the default device, kernels), compared output
    by output
@@ -678,6 +681,55 @@ def main() -> int:
                       f"backpointers; an empty launch of its grid ({B_REAL} blocks x "
                       f"{viterbi.BLOCK_THREADS} threads) {empty_c:.4f} ms; the kernel of one warp "
                       f"per track, a lane a state, took {EARLIER_MS['viterbi_decode']:.4f} ms (em)")
+
+    # 5b. B and C past shared memory: their long paths at a batch of whole
+    # two-hour mixes (portbench/configs/longmix.json), C at 36,001 beat slots
+    # (rows that walk every frame, die out early, end part of the way in, and
+    # an empty row), B at 115,200 walk slots (counts of 0 to N, an unsorted
+    # row); the plain versions, loops over every slot, timed once by the host
+    lw = measure.long_walk_inputs(dev)
+    lw_args = (lw["times"], lw["n_beats"], lw["bar"])
+    got_b = downbeat_mask(*lw_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_b = downbeat_mask_plain(*lw_args)
+    torch.cuda.synchronize()
+    plain_ms_b_long = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got_b, ref_b):
+        fail(f"kernel B's long path disagrees with its plain version in "
+             f"{int((got_b != ref_b).sum())} slots")
+    ms_b_long = cuda_time_ms(lambda: downbeat_mask(*lw_args), 50)
+    bound_b_long = downbeats.bound_ms(measure.LONG_ROWS, measure.LONG_SLOTS,
+                                      lw["n_beats"].tolist())
+    empty_b_long = measure.empty_launch_ms(measure.LONG_ROWS, downbeats.BLOCK_THREADS,
+                                           downbeats.LONG_SMEM_BYTES)
+    phase("kernel B, long", f"downbeat_mask [{measure.LONG_ROWS},{measure.LONG_SLOTS}] (past "
+                            f"shared memory), beat counts {lw['n_beats'].tolist()}: exact "
+                            f"({int(got_b.sum())} downbeats); kernel {ms_b_long:.4f} ms, plain "
+                            f"{plain_ms_b_long:.1f} ms (host clock, once), "
+                            f"{bound_text(bound_b_long, ms_b_long)}; an empty launch of its grid "
+                            f"{empty_b_long:.4f} ms")
+    em_long = measure.long_decode_inputs(dev)
+    got_c = viterbi_decode(em_long)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_c = viterbi_decode_plain(em_long)
+    torch.cuda.synchronize()
+    plain_ms_c_long = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got_c, ref_c):
+        fail(f"kernel C's long path disagrees with its plain version in "
+             f"{int((got_c != ref_c).sum())} slots")
+    ms_c_long = cuda_time_ms(lambda: viterbi_decode(em_long), 50)
+    frames_long = viterbi.live_frames(em_long)
+    bound_c_long = viterbi.bound_ms(measure.LONG_ROWS, measure.LONG_FRAMES, frames_long.tolist())
+    empty_c_long = measure.empty_launch_ms(measure.LONG_ROWS, viterbi.BLOCK_THREADS,
+                                           viterbi.LONG_SMEM_BYTES)
+    phase("kernel C, long", f"viterbi_decode [{measure.LONG_ROWS},{measure.LONG_FRAMES}] (past "
+                            f"shared memory), frames to walk {frames_long.tolist()}: exact; kernel "
+                            f"{ms_c_long:.4f} ms, plain {plain_ms_c_long:.1f} ms (host clock, "
+                            f"once), {bound_text(bound_c_long, ms_c_long)}; an empty launch of its "
+                            f"grid {empty_c_long:.4f} ms")
+    del lw, lw_args, em_long, got_b, ref_b, got_c, ref_c
 
     # 6. kernel D at the main path's shape: B=40, 256-frame chunks of the
     # 2048-point BPM STFT (with the zeroed frames past a track's end); the
@@ -1464,6 +1516,11 @@ def main() -> int:
     kernels[2].update(steady_ms=ms_c["em_steady"],
                       steady_bound_ms=bound_c["em_steady"]["bound_ms"],
                       empty_launch_ms=empty_c)
+    # B and C past shared memory, at a batch of two-hour mixes
+    kernels[1].update(long_ms=ms_b_long, long_plain_ms=plain_ms_b_long,
+                      long_bound_ms=bound_b_long["bound_ms"], long_empty_launch_ms=empty_b_long)
+    kernels[2].update(long_ms=ms_c_long, long_plain_ms=plain_ms_c_long,
+                      long_bound_ms=bound_c_long["bound_ms"], long_empty_launch_ms=empty_c_long)
     kernels[3].update(aux_ms=ms_d["aux"], aux_plain_ms=plain_ms_d["aux"],
                       aux_bound_ms=bound_d["aux"]["bound_ms"])
     # the opt-in shapes: A with every bin kept, D over a whole track, and the

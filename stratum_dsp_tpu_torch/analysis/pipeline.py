@@ -47,7 +47,8 @@ FAMILY_RELS = (2.0, 1.5, 4.0 / 3.0)
 
 @dataclasses.dataclass(frozen=True)
 class PipelineCaps:
-    """Static capacities (sized for a 3-minute track by default)."""
+    """Static capacities (sized for a 3-minute track by default). A row that
+    a capacity cuts is counted in ``capped_rows`` on the call's span."""
 
     max_onsets: int = 2048
     max_beats: int = 1024
@@ -210,8 +211,13 @@ def _analyze(samples, lengths, device, cfg: AnalysisConfig, sample_rate: int, ca
             samples, lengths = _to_device(samples, lengths, device, time_mesh)
             t = samples.shape[1]
             track_ok = lengths > 0
-        return _run_stages(samples, lengths, track_ok, t, cfg, sample_rate, caps,
-                           debug_stop_after, time_mesh, chunk_batch)
+        # the rows a capacity cut, read with the tempo variation's flag
+        with tracing.capped_rows() as capped:
+            out = _run_stages(samples, lengths, track_ok, t, cfg, sample_rate, caps,
+                              debug_stop_after, time_mesh, chunk_batch)
+        if capped.count is not None:
+            tracing.count("capped_rows", capped.count)
+        return out
 
 
 def _run_stages(samples, lengths, track_ok, t: int, cfg: AnalysisConfig, sample_rate: int,

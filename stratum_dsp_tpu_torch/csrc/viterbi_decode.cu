@@ -89,6 +89,63 @@ __device__ __forceinline__ unsigned compose(unsigned f, unsigned g) {
   return out;
 }
 
+// The transitions a state's candidates come through: lo[s] = trans[s-1][s],
+// mid[s] = trans[s][s], hi[s] = trans[s+1][s] (0 where there is no such state).
+struct Weights {
+  float lo[kStates], mid[kStates], hi[kStates];
+};
+
+__device__ __forceinline__ Weights load_weights(const float* trans) {
+  Weights w;
+#pragma unroll
+  for (int s = 0; s < kStates; ++s) {
+    w.lo[s] = s > 0 ? trans[(s - 1) * kStates + s] : 0.f;
+    w.mid[s] = trans[s * kStates + s];
+    w.hi[s] = s < kStates - 1 ? trans[(s + 1) * kStates + s] : 0.f;
+  }
+  return w;
+}
+
+// One forward step: v_t of states 0..2 from v_{t-1} and the emission e_t
+// (v_t[3] == v1, v_t[4] == v0 by symmetry).
+__device__ __forceinline__ void forward_step(float& v0, float& v1, float& v2, float e,
+                                             const Weights& w) {
+  const float n0 = fmaxf(fmaxf(__fmul_rn(v0, w.mid[0]), __fmul_rn(v1, w.hi[0])), 0.f);
+  const float n1 = fmaxf(fmaxf(__fmul_rn(v0, w.lo[1]), __fmul_rn(v1, w.mid[1])),
+                         fmaxf(__fmul_rn(v2, w.hi[1]), 0.f));
+  // state 2's third candidate, v_t[3] * trans[3][2], is its first again
+  const float n2 = fmaxf(fmaxf(__fmul_rn(v1, w.lo[2]), __fmul_rn(v2, w.mid[2])), 0.f);
+  v0 = __fmul_rn(n0, e);
+  v1 = __fmul_rn(n1, e);
+  v2 = __fmul_rn(n2, e);
+}
+
+// Frame t's five backpointers, packed, from v_{t-1} of states 0..2 in q:
+// the reference's compare chain, ascending predecessors, strict `>` from 0.
+__device__ __forceinline__ unsigned pack_backpointers(float4 q, const Weights& w) {
+  const float p[kStates] = {q.x, q.y, q.z, q.y, q.x};
+  unsigned packed = 0;
+#pragma unroll
+  for (int s = 0; s < kStates; ++s) {
+    float top = 0.f;
+    unsigned arg = 0;
+    if (s > 0) {
+      const float c = __fmul_rn(p[s - 1], w.lo[s]);
+      if (c > top) { top = c; arg = s - 1; }
+    }
+    {
+      const float c = __fmul_rn(p[s], w.mid[s]);
+      if (c > top) { top = c; arg = s; }
+    }
+    if (s < kStates - 1) {
+      const float c = __fmul_rn(p[s + 1], w.hi[s]);
+      if (c > top) { top = c; arg = s + 1; }
+    }
+    packed |= arg << (3u * s);
+  }
+  return packed;
+}
+
 // The backtrack by one warp. `bp[t]` maps the state at frame t to the state
 // at frame t - 1 (t in 1..T-1; bp[0] is not read); `final_state` is the
 // state at frame T - 1. Writes the states of frames 0..T-1 to `sst`.
@@ -132,14 +189,7 @@ __global__ void __launch_bounds__(32) viterbi_kernel(
   STAMP(0)
   const float* row = em + (size_t)b * t_total;
   for (int i = lane; i < t_total; i += 32) sem[i] = row[i];
-  // w_lo[s] = trans[s-1][s], w_mid[s] = trans[s][s], w_hi[s] = trans[s+1][s]
-  float w_lo[kStates], w_mid[kStates], w_hi[kStates];
-#pragma unroll
-  for (int s = 0; s < kStates; ++s) {
-    w_lo[s] = s > 0 ? trans[(s - 1) * kStates + s] : 0.f;
-    w_mid[s] = trans[s * kStates + s];
-    w_hi[s] = s < kStates - 1 ? trans[(s + 1) * kStates + s] : 0.f;
-  }
+  const Weights w = load_weights(trans);
   __syncwarp();
   STAMP(1)  // staged
 
@@ -149,14 +199,7 @@ __global__ void __launch_bounds__(32) viterbi_kernel(
   if (lane == 0) {
     float v0 = __fmul_rn(0.2f, sem[0]), v1 = v0, v2 = v0;  // v_t[3] == v1, v_t[4] == v0
     auto step = [&](int t, float e) {
-      const float n0 = fmaxf(fmaxf(__fmul_rn(v0, w_mid[0]), __fmul_rn(v1, w_hi[0])), 0.f);
-      const float n1 = fmaxf(fmaxf(__fmul_rn(v0, w_lo[1]), __fmul_rn(v1, w_mid[1])),
-                             fmaxf(__fmul_rn(v2, w_hi[1]), 0.f));
-      // state 2's third candidate, v_t[3] * trans[3][2], is its first again
-      const float n2 = fmaxf(fmaxf(__fmul_rn(v1, w_lo[2]), __fmul_rn(v2, w_mid[2])), 0.f);
-      v0 = __fmul_rn(n0, e);
-      v1 = __fmul_rn(n1, e);
-      v2 = __fmul_rn(n2, e);
+      forward_step(v0, v1, v2, e, w);
       sv[t] = make_float4(v0, v1, v2, 0.f);
     };
     sv[0] = make_float4(v0, v1, v2, 0.f);
@@ -199,30 +242,7 @@ __global__ void __launch_bounds__(32) viterbi_kernel(
   // decode that ends in `final_state` (0 in that case) at frame stored - 1.
 
   // backpointers, all lanes: frame t from v_{t-1}
-  for (int t = 1 + lane; t < stored; t += 32) {
-    const float4 q = sv[t - 1];
-    const float p[kStates] = {q.x, q.y, q.z, q.y, q.x};
-    unsigned packed = 0;
-#pragma unroll
-    for (int s = 0; s < kStates; ++s) {
-      float top = 0.f;
-      unsigned arg = 0;
-      if (s > 0) {
-        const float c = __fmul_rn(p[s - 1], w_lo[s]);
-        if (c > top) { top = c; arg = s - 1; }
-      }
-      {
-        const float c = __fmul_rn(p[s], w_mid[s]);
-        if (c > top) { top = c; arg = s; }
-      }
-      if (s < kStates - 1) {
-        const float c = __fmul_rn(p[s + 1], w_hi[s]);
-        if (c > top) { top = c; arg = s + 1; }
-      }
-      packed |= arg << (3u * s);
-    }
-    bp[t] = (uint16_t)packed;
-  }
+  for (int t = 1 + lane; t < stored; t += 32) bp[t] = (uint16_t)pack_backpointers(sv[t - 1], w);
   __syncwarp();  // bp is complete, and every lane is done with sem
   STAMP(3)  // backpointers
 
@@ -252,6 +272,143 @@ __global__ void __launch_bounds__(32) backtrack_kernel(
   for (int i = lane; i < t_total; i += 32) states[(size_t)b * t_total + i] = sst[i];
 }
 
+// ---- The long path: rows past shared memory ----
+//
+// Above stratum_viterbi_max_frames() frames (a whole two-hour mix has 36,001
+// beat slots) a row's v_t and backpointers no longer fit in shared memory.
+// viterbi_long_kernel keeps the decode above, one warp a track, and streams
+// the row in tiles of kLongTile frames through a fixed 40 KB:
+//  * forward: the warp stages a tile's emissions, lane 0 walks them with the
+//    same step (its three values carried in registers from tile to tile, the
+//    v of the frame before the tile kept in sv[0]), and the 32 lanes pack
+//    the tile's backpointers from the stored v, as above, into a global
+//    [B, T] u16 buffer;
+//  * it ends early exactly as above, at an 8-frame boundary of a tile, and
+//    reads no tile past that frame;
+//  * backtrack: tiles from the last walked frame down, each the warp scan
+//    above from the state at the tile's last frame; the state at the frame
+//    before a tile is the tile's first map applied to the state at its first
+//    frame, which is all the scan carries from tile to tile.
+// Every value is computed by the same operations in the same order as in
+// viterbi_kernel, so the states are the same bit for bit.
+
+constexpr int kLongTile = 2048;
+
+// States of frames [0, hi) of one row from the state `s_end` at frame
+// hi - 1, in tiles of kLongTile frames from the last: packed backpointers
+// from `bprow` (frame t's map in entry t; entry 0 is not read), states to
+// `orow`. `sbp` and `sst` hold kLongTile entries of shared memory each.
+__device__ void backtrack_tiles(const uint16_t* bprow, int hi, unsigned s_end, int* orow,
+                                uint16_t* sbp, int* sst, int lane) {
+  while (hi > 0) {
+    const int lo = max(0, hi - kLongTile), n = hi - lo;
+    for (int i = lane; i < n; i += 32) sbp[i] = bprow[lo + i];
+    __syncwarp();
+    backtrack_scan(sbp, n, s_end, sst, lane);
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) orow[lo + i] = sst[i];
+    if (lo > 0) s_end = apply_map(sbp[0], (unsigned)sst[0]);  // the state at frame lo - 1
+    __syncwarp();  // every lane is done with sbp and sst
+    hi = lo;
+  }
+}
+
+__global__ void __launch_bounds__(32) viterbi_long_kernel(
+    const float* __restrict__ em,     // [B, T] state-independent emissions
+    const float* __restrict__ trans,  // [5, 5] row-normalized transitions
+    uint16_t* bp_g,                   // [B, T] packed backpointers (scratch)
+    int* __restrict__ states,         // [B, T] decoded states
+    int t_total) {
+  __shared__ __align__(16) float4 sv[kLongTile + 1];  // sv[i + 1]: v of the tile's frame i
+  __shared__ __align__(16) float sem[kLongTile];
+  uint16_t* sbp = reinterpret_cast<uint16_t*>(sv);  // the backtrack's tiles, after the forward
+  int* sst = reinterpret_cast<int*>(sem);
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const float* row = em + (size_t)b * t_total;
+  uint16_t* bprow = bp_g + (size_t)b * t_total;
+  int* orow = states + (size_t)b * t_total;
+  const Weights w = load_weights(trans);
+
+  // forward: lane 0's v_t of states 0..2 at the last walked frame
+  float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+  int stored = 0;
+  bool live = true;
+  for (int lo = 0; live && lo < t_total; lo += kLongTile) {
+    const int n = min(kLongTile, t_total - lo);
+    for (int i = lane; i < n; i += 32) sem[i] = row[lo + i];
+    __syncwarp();
+    int walked = 0;
+    if (lane == 0) {
+      auto step = [&](int i, float e) {
+        forward_step(v0, v1, v2, e, w);
+        sv[i + 1] = make_float4(v0, v1, v2, 0.f);
+      };
+      int i = 0;
+      if (lo == 0) {
+        v0 = __fmul_rn(0.2f, sem[0]);
+        v1 = v0;
+        v2 = v0;
+        sv[1] = make_float4(v0, v1, v2, 0.f);
+        i = 1;
+      }
+      for (; i < n && (i & 7) != 0; ++i) step(i, sem[i]);
+      for (; live && i + 8 <= n; i += 8) {
+        const float4 ea = *reinterpret_cast<const float4*>(sem + i);
+        const float4 eb = *reinterpret_cast<const float4*>(sem + i + 4);
+        step(i, ea.x);
+        step(i + 1, ea.y);
+        step(i + 2, ea.z);
+        step(i + 3, ea.w);
+        step(i + 4, eb.x);
+        step(i + 5, eb.y);
+        step(i + 6, eb.z);
+        step(i + 7, eb.w);
+        live = v0 != 0.f || v1 != 0.f || v2 != 0.f;
+      }
+      if (live) {
+        for (; i < n; ++i) step(i, sem[i]);
+      }
+      walked = i;
+    }
+    walked = __shfl_sync(kFull, walked, 0);
+    live = __shfl_sync(kFull, live, 0);
+    __syncwarp();  // the tile's v is complete
+    // backpointers of the tile's walked frames, from the v of the frame before
+    for (int i = (lo == 0 ? 1 : 0) + lane; i < walked; i += 32) {
+      bprow[lo + i] = (uint16_t)pack_backpointers(sv[i], w);
+    }
+    __syncwarp();  // every lane is done with sv and sem
+    if (lane == 0) sv[0] = sv[walked];
+    stored = lo + walked;
+    __syncwarp();
+  }
+  unsigned final_state = 0;
+  if (lane == 0) {
+    // the first maximum of (v0, v1, v2, v1, v0)
+    float top = v0;
+    if (v1 > top) { top = v1; final_state = 1; }
+    if (v2 > top) final_state = 2;
+  }
+  final_state = __shfl_sync(kFull, final_state, 0);
+
+  backtrack_tiles(bprow, stored, final_state, orow, sbp, sst, lane);
+  for (int i = stored + lane; i < t_total; i += 32) orow[i] = 0;
+}
+
+// The tiled backtrack alone, on given packed backpointers: the tests' hold
+// on backtrack_tiles where stratum_viterbi_backtrack's rows pass 48 KB.
+__global__ void __launch_bounds__(32) backtrack_long_kernel(
+    const uint16_t* __restrict__ packed,   // [B, T]
+    const int* __restrict__ final_states,  // [B]
+    int* __restrict__ states,              // [B, T]
+    int t_total) {
+  __shared__ uint16_t sbp[kLongTile];
+  __shared__ int sst[kLongTile];
+  const int b = blockIdx.x;
+  backtrack_tiles(packed + (size_t)b * t_total, t_total, (unsigned)final_states[b],
+                  states + (size_t)b * t_total, sbp, sst, threadIdx.x);
+}
+
 }  // namespace
 
 // Largest T the kernels take: T * 22 bytes of shared memory within 227 KB.
@@ -274,14 +431,29 @@ extern "C" int stratum_viterbi_decode(const void* em, const void* trans, void* s
   return (int)cudaGetLastError();
 }
 
+// The long path, for any T: `backptrs` is a [B, T] u16 scratch buffer the
+// kernel writes and reads back. Launches on `stream`; returns
+// cudaGetLastError() (0 on success).
+extern "C" int stratum_viterbi_decode_long(const void* em, const void* trans, void* backptrs,
+                                           void* states, int batch, int t_total, void* stream) {
+  if (batch <= 0 || t_total <= 0) return (int)cudaErrorInvalidValue;
+  viterbi_long_kernel<<<batch, 32, 0, (cudaStream_t)stream>>>(
+      (const float*)em, (const float*)trans, (uint16_t*)backptrs, (int*)states, t_total);
+  return (int)cudaGetLastError();
+}
+
 // The backtrack of `stratum_viterbi_decode` on packed backpointers [B, T]
-// (uint16, state s of frame t in bits [3s, 3s + 3)) and final states [B].
+// (uint16, state s of frame t in bits [3s, 3s + 3)) and final states [B];
+// past 48 KB of shared memory a row (8,192 frames), the long path's tiles.
 extern "C" int stratum_viterbi_backtrack(const void* packed, const void* final_states,
                                          void* states, int batch, int t_total, void* stream) {
-  if (batch <= 0 || t_total <= 0 || (size_t)t_total * 6 > 48 * 1024) {
-    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || t_total <= 0) return (int)cudaErrorInvalidValue;
+  if ((size_t)t_total * 6 > 48 * 1024) {
+    backtrack_long_kernel<<<batch, 32, 0, (cudaStream_t)stream>>>(
+        (const uint16_t*)packed, (const int*)final_states, (int*)states, t_total);
+  } else {
+    backtrack_kernel<<<batch, 32, (size_t)t_total * 6, (cudaStream_t)stream>>>(
+        (const uint16_t*)packed, (const int*)final_states, (int*)states, t_total);
   }
-  backtrack_kernel<<<batch, 32, (size_t)t_total * 6, (cudaStream_t)stream>>>(
-      (const uint16_t*)packed, (const int*)final_states, (int*)states, t_total);
   return (int)cudaGetLastError();
 }

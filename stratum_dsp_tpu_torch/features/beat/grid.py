@@ -10,6 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import tracing
 from ...ops import masked, tables
 from ...ops.downbeats import downbeat_mask
 from ...ops.masked import fma
@@ -159,19 +160,25 @@ def fit_grid_drift(anchor, bpm, onset_times, onset_valid, max_beats: int, n_iter
 def generate_beat_grid(bpm, bpm_confidence, onset_times, onset_valid, max_beats: int = 1024,
                        seg_beat_cap: int = 64, max_segments: int = 48, anchor=None,
                        interval_scale=None, fill: bool = False) -> BeatGridTensor:
-    """Full grid generation for a batch (mod.rs:108-250)."""
+    """Full grid generation for a batch (mod.rs:108-250), in spans
+    ``grid.track`` (emissions, kernel C, fill), ``grid.variation`` and
+    ``grid.downbeats`` (kernel B)."""
     ok = (bpm > 0.0) & (bpm <= 300.0) & (onset_valid.sum(dim=-1) >= 1)
-    beats, _states = hmm.track_beats(bpm, onset_times, onset_valid, max_beats, anchor,
-                                     interval_scale, fill)
+    with tracing.span("grid.track"):
+        beats, _states = hmm.track_beats(bpm, onset_times, onset_valid, max_beats, anchor,
+                                         interval_scale, fill)
     ok = ok & beats.valid.any(dim=-1)
-    refined, has_variation = refine_beats(beats, bpm, bpm_confidence, onset_times, onset_valid,
-                                          seg_beat_cap, max_segments)
+    with tracing.span("grid.variation"):
+        refined, has_variation = refine_beats(beats, bpm, bpm_confidence, onset_times,
+                                              onset_valid, seg_beat_cap, max_segments)
     btimes, n_beats = compact_sorted(refined.times, refined.valid)
     slot_valid = torch.arange(btimes.shape[-1], device=bpm.device)[None, :] < n_beats[:, None]
     btimes = torch.where(slot_valid, btimes, 0.0)
 
     sig, sig_conf = ts.detect_time_signature(btimes, n_beats)
-    db_mask = detect_downbeats(btimes, n_beats, bpm, sig)
+    with tracing.span("grid.downbeats"):
+        tracing.count_on_device("downbeat_slots", n_beats.sum)
+        db_mask = detect_downbeats(btimes, n_beats, bpm, sig)
     stability = grid_stability(btimes, n_beats)
     db_sorted = torch.sort(torch.where(db_mask, btimes, BIG), dim=-1).values
     db_valid = db_sorted < BIG * 0.5

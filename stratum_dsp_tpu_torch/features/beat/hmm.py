@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ... import tracing
 from ...ops.masked import cdiv, fma, rdiv, searchsorted_nearest
 from ...ops.viterbi import viterbi_decode
 
@@ -44,7 +45,10 @@ def track_beats(bpm, onset_times, onset_valid, max_beats: int,
                 fill: bool = False) -> Tuple[BeatTensor, torch.Tensor]:
     """Track beats for a batch (hmm.rs:122-441). Returns (BeatTensor, the
     Viterbi states [B, max_beats] int32). ``anchor`` [B] overrides the
-    first-onset phase anchor; ``interval_scale`` [B] scales the interval."""
+    first-onset phase anchor; ``interval_scale`` [B] scales the interval.
+    Rows with more beat slots than ``max_beats`` are flagged
+    (``tracing.flag_capped``), and the slots decoded are counted
+    (``viterbi_frames``, ``tracing.count_on_device``)."""
     ok = (bpm > EPSILON) & (bpm <= 300.0) & (onset_valid.sum(dim=-1) >= 1)
     beat_interval = rdiv(60.0, torch.where(ok, bpm, 120.0))
     if interval_scale is not None:
@@ -56,7 +60,9 @@ def track_beats(bpm, onset_times, onset_valid, max_beats: int,
     start = torch.where(ok, start, 0.0)
     end = torch.where(ok, end, 0.0)
     num_frames = torch.ceil((end - start).clamp_min(0.0) / beat_interval).to(torch.int64) + 1
+    tracing.flag_capped(lambda: ok & (num_frames > max_beats))
     num_frames = torch.where(ok, num_frames.clamp_max(max_beats), 0)
+    tracing.count_on_device("viterbi_frames", num_frames.sum)
 
     t_idx = torch.arange(max_beats, device=bpm.device, dtype=torch.float32)
     beat_times = fma(t_idx[None, :], beat_interval[:, None], start[:, None])

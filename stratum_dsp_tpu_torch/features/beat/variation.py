@@ -40,7 +40,10 @@ def _searchsorted(sorted_rows, values, right=False):
 def refine_beats(beats: BeatTensor, nominal_bpm, bpm_confidence, onset_times, onset_valid,
                  seg_beat_cap: int, max_segments: int):
     """Variation detection + refinement. Returns (BeatTensor
-    [B, max(max_segments*seg_beat_cap, MB)], has_variation [B])."""
+    [B, max(max_segments*seg_beat_cap, MB)], has_variation [B]). Rows with
+    more segments than ``max_segments`` are flagged (``tracing.flag_capped``)
+    and the segments that exist counted (``variation_segments``); the one
+    read of the device here also reads the call's flagged rows."""
     b, mb = beats.times.shape
     dev = beats.times.device
     bt, n_beats = compact_sorted(beats.times, beats.valid)
@@ -66,6 +69,9 @@ def refine_beats(beats: BeatTensor, nominal_bpm, bpm_confidence, onset_times, on
     start = t0[:, None] + s_arr[None, :] * hop[:, None]  # [B, S]
     end = torch.minimum(start + seg_dur[:, None], tlast[:, None])
     exists = segmentable[:, None] & (start < tlast[:, None])
+    # the segment past the last that the cap holds would exist
+    tracing.flag_capped(lambda: segmentable & (t0 + float(s_count) * hop < tlast))
+    tracing.count_on_device("variation_segments", exists.sum)
 
     i0 = _searchsorted(bt, start)
     i1 = torch.minimum(_searchsorted(bt, end, right=True), n_beats[:, None])
@@ -88,7 +94,7 @@ def refine_beats(beats: BeatTensor, nominal_bpm, bpm_confidence, onset_times, on
     times, conf, valid = (F.pad(x, (0, n_out - mb)) for x in orig)
 
     with tracing.host_read("variation.any"):
-        refine = bool(has_variation.any())
+        refine = tracing.read_with_capped(has_variation.any())
     if refine:  # the reference refines only on variation
         seg_times, seg_conf, seg_valid = _refine_segments(
             bt, bconf, ot, n_onsets, nominal_bpm, start, end, i0, i1, is_var_all, seg_ok,

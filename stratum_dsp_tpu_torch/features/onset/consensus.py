@@ -16,6 +16,8 @@ from typing import Sequence
 
 import torch
 
+from ... import tracing
+
 INT_BIG = 2**31 - 1
 
 
@@ -72,9 +74,11 @@ def vote_onsets(method_positions: Sequence[torch.Tensor], method_valids: Sequenc
 
 def consensus_onsets(vote: dict, max_onsets: int):
     """Clusters with >= 2 voting methods when a track has any, else all
-    clusters (lib.rs:259-285); time-sorted ``(positions [B, K], valid)``."""
+    clusters (lib.rs:259-285); time-sorted ``(positions [B, K], valid)``;
+    rows with more chosen clusters are flagged (``tracing.flag_capped``)."""
     centers, valid, voted_by = vote["centers"], vote["valid"], vote["voted_by"]
     strong = valid & (voted_by >= 2)
     chosen = torch.where(strong.any(dim=-1, keepdim=True), strong, valid)
+    tracing.flag_capped(lambda: chosen.sum(dim=-1) > max_onsets)
     s = torch.sort(torch.where(chosen, centers, INT_BIG), dim=-1).values[:, :max_onsets]
     return torch.where(s == INT_BIG, 0, s), s != INT_BIG

@@ -127,6 +127,50 @@ def decode_inputs(device, seed: int = 12) -> dict:
     return {"em": em, "em_aligned": torch.ones((B_REAL, t), device=device), "em_steady": steady}
 
 
+# kernels B and C past shared memory: a batch of whole two-hour mixes under
+# portbench/configs/longmix.json (8 rows; 36,001 beat slots, the downbeat
+# walk's 1,800 x 64 = 115,200)
+LONG_ROWS, LONG_FRAMES, LONG_SLOTS = 8, 36001, 115200
+
+
+def long_decode_inputs(device, t: int = LONG_FRAMES, seed: int = 13) -> torch.Tensor:
+    """Kernel C's long-path input ``[8, t]``: rows near 1.21 (steady and
+    jittered) and of 1.0 that walk every frame, a row of 1e-3 that dies out
+    in ~15 frames, a row of uniform(0.01, 1) emissions, a row whose emissions
+    end two thirds of the way in (a track shorter than the batch's longest),
+    and an empty row (all 0)."""
+    rng = np.random.default_rng(seed)
+    em = np.full((LONG_ROWS, t), 1.21, np.float32)
+    em[1] *= rng.uniform(0.97, 1.03, t).astype(np.float32)
+    em[2] = 1.0
+    em[3] = 1e-3
+    em[4] = rng.uniform(0.01, 1.0, t).astype(np.float32)
+    em[5] *= rng.uniform(0.97, 1.03, t).astype(np.float32)
+    em[5, 2 * t // 3:] = 0.0
+    em[6] = 0.0
+    em[7, t // 2:] = 1.0
+    return torch.as_tensor(em, device=device)
+
+
+def long_walk_inputs(device, n: int = LONG_SLOTS, seed: int = 14) -> dict:
+    """Kernel B's long-path inputs ``[8, n]``: sorted times at a quarter bar
+    (+-10% jitter), a row on the -10% edge of one bar, one unsorted;
+    beat counts of 0 (an empty row), 1, one slot past a tile of 4,096, ~20k
+    (a two-hour mix at ~168 BPM) and n."""
+    rng = np.random.default_rng(seed)
+    bar = rng.uniform(1.2, 3.0, LONG_ROWS).astype(np.float32)
+    times = np.cumsum((bar[:, None] / np.float32(4.0))
+                      * rng.uniform(0.9, 1.1, (LONG_ROWS, n)).astype(np.float32),
+                      axis=1).astype(np.float32)
+    k = np.arange(n, dtype=np.float32)
+    times[1] = k * (bar[1] * np.float32(0.9) / np.float32(4.0))
+    times[2] = rng.permutation(times[2])
+    counts = np.asarray([n, n, n - 1, 0, 1, 4097, 20160, min(n, 8191)], np.int32)
+    return {"times": torch.as_tensor(times, device=device),
+            "n_beats": torch.as_tensor(counts, device=device),
+            "bar": torch.as_tensor(bar, device=device)}
+
+
 def stage2_input(rng: np.random.Generator, b: int, ext: int, kp: int, device,
                  spare_rows: int = 0) -> torch.Tensor:
     """Random bf16 block DFTs ``[b, EBP, 2 kp]`` for ``ext`` frames at R = 16."""

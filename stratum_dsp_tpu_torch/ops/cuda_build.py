@@ -45,6 +45,7 @@ _SIGNATURES = {
     "stratum_fused_novelty_smem": ([_int] * 5, _int),
     "stratum_viterbi_decode": ([_vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_viterbi_max_frames": ([], _int),
+    "stratum_viterbi_decode_long": ([_vp, _vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_viterbi_backtrack": ([_vp, _vp, _vp, _int, _int, _vp], _int),
     "stratum_empty_launch": ([_int, _int, _int, _vp], _int),
     "stratum_window_median": ([_vp, _vp, _vp] + [_int] * 5 + [_vp], _int),

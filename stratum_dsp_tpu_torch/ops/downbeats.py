@@ -23,6 +23,9 @@ from . import cuda_build
 # kBytesPerSlot in csrc/downbeat_mask.cu), for timing an empty launch of its grid
 BLOCK_THREADS = 512
 SMEM_BYTES_PER_SLOT = 12
+# the long path's fixed shared memory (downbeat_long_kernel: kLongSlots = 4096
+# slots of 12 bytes), for the same
+LONG_SMEM_BYTES = 4096 * 12
 
 
 def downbeat_mask_plain(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor):
@@ -62,7 +65,10 @@ def bound_ms(b: int, n: int, n_beats=None) -> dict:
 def downbeat_mask(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor):
     """Downbeat mask ``[B, N]`` bool for ``times [B, N]`` f32, ``n_beats [B]``
     int, ``bar [B]`` f32 seconds. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise. Rows of up to
+    ``stratum_downbeat_max_slots()`` slots (19,370) take the kernel's
+    shared-memory path, longer ones its long path, which walks them in tiles
+    of 4,096 slots."""
     if times.device.type == "cpu":
         return downbeat_mask_plain(times, n_beats, bar)
     if times.device.type != "cuda":
@@ -74,10 +80,9 @@ def downbeat_mask(times: torch.Tensor, n_beats: torch.Tensor, bar: torch.Tensor)
     for name, x in (("n_beats", n_beats), ("bar", bar)):
         if x.shape != (b,) or x.device != times.device:
             raise ValueError(f"downbeat_mask: {name} must be [{b}] on {times.device}")
+    if n >= 2**31:
+        raise ValueError(f"downbeat_mask kernel takes fewer than 2**31 slots, got {n}")
     lib = cuda_build.library()
-    if n > lib.stratum_downbeat_max_slots():
-        raise ValueError(f"downbeat_mask kernel takes at most "
-                         f"{lib.stratum_downbeat_max_slots()} slots, got {n}")
     times = times.contiguous()
     nb = n_beats.to(torch.int32).contiguous()
     bar = bar.to(torch.float32).contiguous()

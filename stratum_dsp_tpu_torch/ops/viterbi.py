@@ -26,6 +26,9 @@ NUM_STATES = 5
 # kBytesPerFrame in csrc/viterbi_decode.cu), for timing an empty launch of its grid
 BLOCK_THREADS = 32
 SMEM_BYTES_PER_FRAME = 22
+# the long path's fixed shared memory (viterbi_long_kernel: kLongTile = 2048
+# frames of v and emissions), for the same
+LONG_SMEM_BYTES = (2048 + 1) * 16 + 2048 * 4
 
 
 def transition_matrix() -> np.ndarray:
@@ -110,7 +113,10 @@ def bound_ms(b: int, t: int, frames=None) -> dict:
 
 def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
     """Decode the states ``[B, T]`` int32 from emissions ``[B, T]`` f32. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    Rows of up to ``stratum_viterbi_max_frames()`` frames (10,565) take the
+    kernel's shared-memory path, longer ones its long path, which streams
+    them and keeps a ``[B, T]`` int16 buffer of backpointers on the card."""
     if emissions.device.type == "cpu":
         return viterbi_decode_plain(emissions)
     if emissions.device.type != "cuda":
@@ -119,17 +125,24 @@ def viterbi_decode(emissions: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"viterbi_decode kernel takes f32 [B, T] emissions, got "
                          f"{emissions.dtype} {tuple(emissions.shape)}")
     b, t = emissions.shape
+    if t >= 2**31:
+        raise ValueError(f"viterbi_decode kernel takes fewer than 2**31 frames, got {t}")
     lib = cuda_build.library()
-    if t > lib.stratum_viterbi_max_frames():
-        raise ValueError(f"viterbi_decode kernel takes at most "
-                         f"{lib.stratum_viterbi_max_frames()} frames, got {t}")
     emissions = emissions.contiguous()
     trans = _transitions(emissions.device)
     states = torch.empty((b, t), dtype=torch.int32, device=emissions.device)
     with torch.cuda.device(emissions.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.stratum_viterbi_decode(emissions.data_ptr(), trans.data_ptr(),
-                                        states.data_ptr(), b, t, stream)
+        if t > lib.stratum_viterbi_max_frames():
+            # past shared memory the long path streams the row and keeps the
+            # packed backpointers in device memory
+            backptrs = torch.empty((b, t), dtype=torch.int16, device=emissions.device)
+            rc = lib.stratum_viterbi_decode_long(emissions.data_ptr(), trans.data_ptr(),
+                                                 backptrs.data_ptr(), states.data_ptr(), b, t,
+                                                 stream)
+        else:
+            rc = lib.stratum_viterbi_decode(emissions.data_ptr(), trans.data_ptr(),
+                                            states.data_ptr(), b, t, stream)
     cuda_build.check(rc, "viterbi_decode")
     tracing.count_launch(viterbi_decode)
     return states
@@ -140,7 +153,7 @@ viterbi_decode.launches = 0
 
 def backtrack_on_card(backptrs: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     """The kernel's backtrack alone (its warp scan over composed backpointer
-    maps) on given backpointers ``[B, T, 5]`` and final states ``[B]`` on a
+    maps; past 8,192 frames the long path's tiles of it) on given backpointers ``[B, T, 5]`` and final states ``[B]`` on a
     CUDA device; states ``[B, T]`` int32. For the tests, which hold it to
     ``backtrack_plain`` on maps that real emissions cannot produce; nothing on
     the analysis path calls it, and it counts no launch."""

@@ -30,8 +30,15 @@ profiler itself does not reach. A span that records:
 
 Counters are always on: plain integer adds to a process-wide table
 (``counters()``), and to the innermost open span where one records.
-``reset()`` clears both tables; ``stratum_dsp_tpu_torch.reset_launch_counts``
-calls it.
+``count_on_device`` adds a count that lies on the device to the innermost
+span that records, read with the span's record, so that the call waits for
+nothing; it is not in ``counters()``. ``reset()`` clears both tables;
+``stratum_dsp_tpu_torch.reset_launch_counts`` calls it.
+
+``capped_rows()`` gathers, over one call, the rows that a capacity cut
+(``flag_capped`` where each cap is applied); ``read_with_capped`` reads
+their count together with a flag the call reads anyway, so the count costs
+no host read of its own.
 """
 
 from __future__ import annotations
@@ -65,12 +72,13 @@ class _Span:
 
     __slots__ = ("id", "name", "parent", "call", "thread", "start_ns", "end_ns", "counts",
                  "attrs", "device", "stream_ms", "_new_call", "_events", "_stream", "_fn",
-                 "_token")
+                 "_token", "_device_counts")
 
     def __init__(self, name: str, device, new_call: bool, attrs: dict, timed: bool = True):
         self.name, self.attrs, self._new_call = name, attrs, new_call
         self.device = None if device is None else torch.device(device)
         self.counts: dict = {}
+        self._device_counts: list = []
         self.stream_ms = self._stream = None
         self._events = () if timed else None
 
@@ -116,6 +124,9 @@ class _Span:
             self._events[1].synchronize()
             self.stream_ms = self._events[0].elapsed_time(self._events[1])
             self._events = ()
+        for name, value in self._device_counts:
+            self.counts[name] = self.counts.get(name, 0) + int(value)
+        self._device_counts = []
         return {"id": self.id, "name": self.name, "parent": self.parent, "call": self.call,
                 "thread": self.thread, "start_ns": self.start_ns, "end_ns": self.end_ns,
                 "host_ms": (self.end_ns - self.start_ns) / 1e6, "stream_ms": self.stream_ms,
@@ -150,6 +161,61 @@ def count(name: str, n: int = 1) -> None:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + n
         if inner is not None:
             inner.counts[name] = inner.counts.get(name, 0) + n
+
+
+def count_on_device(name: str, make) -> None:
+    """Add a count that lies on the device to the innermost open span that
+    records: ``make()`` gives it as a 0-d integer tensor, and is called only
+    where such a span is open; the span's record reads it (``spans()``)."""
+    inner = _OPEN.get()
+    if inner is not None:
+        inner._device_counts.append((name, make()))
+
+
+class RowCaps:
+    """The rows of one call that a capacity cut: a ``[B]`` bool mask on the
+    device (``flag_capped``), and their count once read
+    (``read_with_capped``), else None."""
+
+    def __init__(self):
+        self.mask = None
+        self.count = None
+
+
+_CAPS: contextvars.ContextVar = contextvars.ContextVar("stratum_row_caps", default=None)
+
+
+@contextlib.contextmanager
+def capped_rows():
+    """Gather the rows that a capacity cuts inside this block (one call)."""
+    caps = RowCaps()
+    token = _CAPS.set(caps)
+    try:
+        yield caps
+    finally:
+        _CAPS.reset(token)
+
+
+def flag_capped(make) -> None:
+    """Where a capacity is applied: ``make()`` gives the ``[B]`` mask of the
+    rows it cuts, and is called only inside ``capped_rows()``."""
+    caps = _CAPS.get()
+    if caps is not None:
+        mask = make()
+        caps.mask = mask if caps.mask is None else caps.mask | mask
+
+
+def read_with_capped(flag: torch.Tensor) -> bool:
+    """``bool(flag)`` for a 0-d device tensor the caller reads anyway, and
+    inside ``capped_rows()`` the count of the rows flagged so far, in the
+    same read; the caller stands in a ``host_read``."""
+    caps = _CAPS.get()
+    if caps is None or caps.mask is None:
+        if caps is not None:
+            caps.count = 0
+        return bool(flag)
+    read, caps.count = torch.stack([flag.to(torch.int64), caps.mask.sum()]).tolist()
+    return bool(read)
 
 
 def count_launch(wrapper) -> None:

@@ -4,18 +4,27 @@ and ``features/beat/grid.py:detect_downbeats``) against the JAX package.
 On the CPU the wrapper runs its plain PyTorch version; it must equal the
 Pallas kernel (interpret mode) and the JAX scan bit for bit, including rows
 with no beats, full rows, and beats exactly on the +-10% bar edge. The CUDA
-kernel is compared with the plain version on the card (``cuda`` marker).
+kernel is compared with the plain version on the card (``cuda`` marker), also
+past shared memory; the card's machine has no JAX, so there the file runs its
+``cuda`` tests alone: ``python3 -m pytest --noconftest -p no:cacheprovider -m
+cuda -k past_shared_memory tests/test_torch_downbeats.py``.
 """
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from stratum_dsp_tpu.features.beat import grid as jgrid
-from stratum_dsp_tpu.ops.downbeats_pallas import downbeat_mask as jax_downbeat_mask
+from stratum_dsp_tpu_torch import measure
 from stratum_dsp_tpu_torch.features.beat import grid as pgrid
 from stratum_dsp_tpu_torch.ops import downbeats
+
+try:  # the reference of the CPU tests
+    import jax.numpy as jnp
+
+    from stratum_dsp_tpu.features.beat import grid as jgrid
+    from stratum_dsp_tpu.ops.downbeats_pallas import downbeat_mask as jax_downbeat_mask
+except ImportError:  # the card's machine: the `cuda` tests need none of it
+    jnp = jgrid = jax_downbeat_mask = None
 
 torch.set_num_threads(2)
 
@@ -124,3 +133,27 @@ def test_kernel_matches_plain_on_card(rng):
         got = downbeats.downbeat_mask(*args)
         assert downbeats.downbeat_mask.launches == before + 1
         assert torch.equal(got, downbeats.downbeat_mask_plain(*args)), (batch.__name__, n)
+
+
+# the shared-memory path's last slot count (227 KB at 12 bytes a slot), the
+# long path's first, and a whole two-hour mix's 1,800 x 64 walk slots
+PAST_SHARED_MEMORY = (19370, 19371, measure.LONG_SLOTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PAST_SHARED_MEMORY)
+def test_kernel_past_shared_memory_on_card(n):
+    """Both paths at the boundary and a two-hour mix's slots: full rows, rows
+    on the +-10% edges, unsorted times, an empty row, counts of 1, one past a
+    tile, ~20k and short of a tile; the mask equals the plain walk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = measure.long_walk_inputs(torch.device("cuda:0"), n)
+    args = (args["times"], args["n_beats"], args["bar"])
+    before = downbeats.downbeat_mask.launches
+    got = downbeats.downbeat_mask(*args)
+    torch.cuda.synchronize()
+    assert downbeats.downbeat_mask.launches == before + 1
+    want = downbeats.downbeat_mask_plain(*args)
+    assert torch.equal(got, want), n
+    assert not want[3].any() and int(want[4].sum()) == 1 and int(want[0].sum()) > 1000

@@ -6,19 +6,28 @@ Pallas kernel (interpret mode) state for state, also where the path
 probabilities underflow through f32 denormals to 0, and ``track_beats``
 must equal the JAX function's beat times, beat mask and states exactly (its
 beat confidences to two f32 ulps: the two libraries' ``exp`` differ there). The CUDA kernel is
-compared with the plain version on the card (``cuda`` marker).
+compared with the plain version on the card (``cuda`` marker), also past
+shared memory; the card's machine has no JAX, so there the file runs its
+``cuda`` tests alone: ``python3 -m pytest --noconftest -p no:cacheprovider -m
+cuda -k past_shared_memory tests/test_torch_viterbi.py``.
 """
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from stratum_dsp_tpu.features.beat import hmm as jhmm
-from stratum_dsp_tpu.ops.viterbi_pallas import _transition_matrix
-from stratum_dsp_tpu.ops.viterbi_pallas import viterbi_decode as jax_viterbi
+from stratum_dsp_tpu_torch import measure
 from stratum_dsp_tpu_torch.features.beat import hmm as phmm
 from stratum_dsp_tpu_torch.ops import viterbi
+
+try:  # the reference of the CPU tests
+    import jax.numpy as jnp
+
+    from stratum_dsp_tpu.features.beat import hmm as jhmm
+    from stratum_dsp_tpu.ops.viterbi_pallas import _transition_matrix
+    from stratum_dsp_tpu.ops.viterbi_pallas import viterbi_decode as jax_viterbi
+except ImportError:  # the card's machine: the `cuda` tests need none of it
+    jnp = jhmm = _transition_matrix = jax_viterbi = None
 
 torch.set_num_threads(2)
 
@@ -170,3 +179,42 @@ def test_backtrack_scan_matches_plain_on_card(rng):
         torch.cuda.synchronize()
         assert torch.equal(got.long(), viterbi.backtrack_plain(bp, last)), t
     assert viterbi.viterbi_decode.launches == before
+
+
+# the shared-memory path's last frame count (227 KB at 22 bytes a frame), the
+# long path's first, and a whole two-hour mix's beat slots at 300 BPM
+PAST_SHARED_MEMORY = (10565, 10566, measure.LONG_FRAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", PAST_SHARED_MEMORY)
+def test_kernel_past_shared_memory_on_card(t):
+    """Both paths at the boundary and a two-hour mix's slots: rows that walk
+    every frame, rows that die out early or end part of the way in, an empty
+    row; the decode equals the plain one state for state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    em = measure.long_decode_inputs(torch.device("cuda:0"), t)
+    before = viterbi.viterbi_decode.launches
+    got = viterbi.viterbi_decode(em)
+    torch.cuda.synchronize()
+    assert viterbi.viterbi_decode.launches == before + 1
+    assert torch.equal(got, viterbi.viterbi_decode_plain(em)), t
+    frames = viterbi.live_frames(em).tolist()
+    assert frames[0] == frames[2] == t and frames[3] < 32 and frames[6] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", (8192, 8193, 2048 * 3 + 1, measure.LONG_FRAMES))
+def test_backtrack_tiles_past_shared_memory_on_card(t):
+    """The long path's backtrack (tiles of the warp scan, the state carried
+    from tile to tile) on random backpointers, against the plain backtrack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda:0")
+    gen = np.random.default_rng(t)
+    bp = torch.as_tensor(gen.integers(0, 5, (3, t, 5)), device=dev)
+    last = torch.as_tensor(gen.integers(0, 5, 3), device=dev)
+    got = viterbi.backtrack_on_card(bp, last)
+    torch.cuda.synchronize()
+    assert torch.equal(got.long(), viterbi.backtrack_plain(bp, last)), t
